@@ -1,0 +1,11 @@
+"""PyTorch / CUDA port of ``freesurgs_tpu`` for one NVIDIA H100.
+
+The JAX package beside this one is the reference: every module here keeps
+its counterpart's path (``core/``, ``ops/``, ``models/``, ``train/``,
+``data/``) and semantics, and the tests hold each against it on the same
+numpy inputs. The two tile-compositing kernels are hand-written CUDA under
+``csrc/`` (see ``ops/raster_cuda.py``); everything else is plain PyTorch.
+
+Entry points take ``device`` and default to ``"cuda"``; nothing moves to
+the CPU by itself.
+"""

@@ -1,0 +1,330 @@
+"""Training steps: per-frame tracking and mapping
+(port of ``freesurgs_tpu/train/steps.py``).
+
+Weights and schedules are the reference's (train.py):
+
+  tracking: 1.0 * rgb(masked) + 0.1 * flow-reprojection, Adam lr 0.01
+            halved at 0, 1/3 and 2/3 of the budget;
+  mapping:  5.0 * rgb + 0.05 * pearson + 0.15 * local-pearson against the
+            monocular depth prior, per-group Adam LRs, densify every 300
+            global mapping iterations below 15000, opacity reset every 3000.
+
+Where the JAX package scans a whole loop inside one jitted call, these are
+Python loops of eager PyTorch; every render goes through the compositing
+kernels (``ops/raster_cuda.py``) on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from ..core.camera import Camera
+from ..core.transforms import build_w2c
+from ..models.gaussians import PARAM_NAMES, GaussianField
+from ..ops.render import DEFAULT_MAX_INSTANCES, render
+from . import losses
+from .densify import (DensifyConfig, add_render_stats, densify_and_prune,
+                      reset_opacity, split_noise)
+from .optim import (AdamState, adam_init, adam_update, apply_updates,
+                    expon_lr, tracking_lr)
+
+
+class TrainConfig(NamedTuple):
+    """The reference's hyper-parameters, with the JAX package's fields and
+    defaults. Fields whose feature waits for a later slice raise when set
+    away from the reference behaviour (see ``check_supported``)."""
+    tracking_iters: int = 50
+    mapping_iters: int = 30
+    first_frame_mapping_iters: int = 200
+    global_iters: int = 30000
+    densify_interval: int = 300
+    densify_until: int = 15000
+    opacity_reset_interval: int = 3000
+    size_threshold_from: int = 4000
+    sh_increase_interval: int = 1000
+    w_rgb_tracking: float = 1.0
+    w_flow_tracking: float = 0.1
+    w_rgb_mapping: float = 5.0
+    w_pearson: float = 0.05
+    w_local_pearson: float = 0.15
+    spatial_lr_scale: float = 5.0
+    position_lr_init: float = 1.6e-4
+    position_lr_final: float = 1.6e-6
+    position_lr_max_steps: int = 30000
+    feature_lr: float = 2.5e-3
+    opacity_lr: float = 0.05
+    scaling_lr: float = 5e-3
+    rotation_lr: float = 1e-3
+    keyframe_policy: str = "uniform"
+    rebin_every: int = 1
+    rebin_tracking_every: int = 1
+    tracking_gn_iters: int = 8
+    tracking_gn_huber_px: float = 2.0
+    # Cap on the instance buffer; 0 -> max_instances_cap. The binner sizes
+    # the buffer exactly on every call below the cap.
+    max_instances: int = 0
+    max_instances_cap: int = DEFAULT_MAX_INSTANCES
+    # Kept for field parity with the JAX package; the port renders through
+    # its compositing kernels only (check_supported).
+    impl: str | None = None
+    densify: DensifyConfig = DensifyConfig()
+
+    @property
+    def instance_cap(self) -> int:
+        return self.max_instances or self.max_instances_cap
+
+    def mapping_lrs(self, step: int, device=None) -> dict[str, torch.Tensor]:
+        xyz = expon_lr(step, self.position_lr_init * self.spatial_lr_scale,
+                       self.position_lr_final * self.spatial_lr_scale,
+                       self.position_lr_max_steps, device=device)
+
+        def c(v):
+            return torch.tensor(v, dtype=torch.float32, device=device)
+
+        return {"means": xyz, "quats": c(self.rotation_lr),
+                "log_scales": c(self.scaling_lr),
+                "logit_opacity": c(self.opacity_lr),
+                "sh_dc": c(self.feature_lr),
+                "sh_rest": c(self.feature_lr / 20.0)}
+
+
+def check_supported(cfg: TrainConfig, *, tracking: bool = False) -> None:
+    """Raise for the features that wait for a later slice (ROADMAP.md,
+    Queue 1) instead of running something else quietly."""
+    if cfg.impl not in (None, "raster"):
+        raise NotImplementedError(
+            f"impl={cfg.impl!r}: the port renders only through its "
+            "compositing kernels (impl=None or 'raster'); the dense oracle "
+            "is a test reference (ops/oracle.py)")
+    if tracking and cfg.tracking_gn_iters > 0:
+        raise NotImplementedError(
+            "tracking_gn_iters > 0 needs the GN flow-PnP init "
+            "(train/flow_pnp.py), ROADMAP Queue 1 item 1; set "
+            "tracking_gn_iters=0 for the reference tracking semantics")
+    if cfg.rebin_every > 1 or cfg.rebin_tracking_every > 1:
+        raise NotImplementedError(
+            "BinState reuse (rebin_every > 1) is ROADMAP Queue 1 item 2")
+    if cfg.keyframe_policy != "uniform":
+        raise NotImplementedError(
+            "keyframe_policy='overlap' (train/keyframes.py) is ROADMAP "
+            "Queue 1 item 5")
+
+
+def _isfinite_count(g: torch.Tensor) -> torch.Tensor:
+    return torch.sum(~torch.isfinite(g)).to(torch.float32)
+
+
+def _finite(g: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+
+
+# ------------------------------------------------------------- tracking
+
+def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
+                  prev_w2c, flow_fw_prev, rigid_mask, cam: Camera,
+                  cfg: TrainConfig, sh_degree: int = 0):
+    """Optimize one frame's (quat, trans) for cfg.tracking_iters Adam steps
+    with the Gaussians frozen. Returns (quat, trans, metrics)."""
+    check_supported(cfg, tracking=True)
+    pose = {"q": quat0.detach().clone(), "t": trans0.detach().clone()}
+    opt = adam_init(pose)
+    dev = quat0.device
+    sh = field.sh
+    nonfinite = torch.zeros((), device=dev)
+    overflow_max = torch.zeros((), device=dev)
+    last = None
+    for i in range(cfg.tracking_iters):
+        q = pose["q"].requires_grad_(True)
+        t = pose["t"].requires_grad_(True)
+        w2c = build_w2c(q, t)
+        out = render(field.means, field.quats, field.log_scales,
+                     field.logit_opacity, sh, w2c, cam, active=field.active,
+                     sh_degree=sh_degree, max_instances=cfg.instance_cap, gs_grad=False,
+                     cam_grad=True)
+        overflow_max = torch.maximum(overflow_max,
+                                     out["overflow"].to(torch.float32))
+        mask = (out["render_dep"] > 0) & (rigid_mask > 0)
+        rgb = cfg.w_rgb_tracking * losses.rgb_loss(out["render"], gt_image,
+                                                   mask=mask)
+        flow = cfg.w_flow_tracking * losses.flow_projection_loss(
+            prev_depth, prev_w2c, out["render_w2c"], flow_fw_prev, cam,
+            rigid_mask=rigid_mask)
+        loss = rgb + flow
+        gq, gt = torch.autograd.grad(loss, (q, t))
+        # NaN guard: one non-finite gradient must not poison the pose
+        nonfinite = nonfinite + _isfinite_count(gq) + _isfinite_count(gt)
+        grads = {"q": _finite(gq), "t": _finite(gt)}
+        lr = tracking_lr(i, cfg.tracking_iters, device=dev)
+        upd, opt = adam_update(grads, opt, lr)
+        pose = apply_updates({"q": q.detach(), "t": t.detach()}, upd)
+        last = (loss.detach(), rgb.detach(), flow.detach())
+    metrics = {"nonfinite_grads": nonfinite, "overflow": overflow_max}
+    if last is not None:
+        metrics.update(loss=last[0], rgb_loss=last[1], flow_loss=last[2])
+    return pose["q"], pose["t"], metrics
+
+
+# -------------------------------------------------------------- mapping
+
+@dataclasses.dataclass
+class MappingState:
+    field: GaussianField
+    opt: AdamState
+    iteration: int                 # global mapping-step counter
+    generator: torch.Generator     # CPU generator: keyframe draws,
+                                   # local-Pearson boxes, split noise
+    pred_depths: torch.Tensor      # (T, H, W) bf16 rendered-depth cache
+    pred_colors: torch.Tensor      # (T, 3, H, W) bf16 rendered-color cache
+
+
+_GROUPS = PARAM_NAMES + ("probe2d",)
+_DENSIFY_KEYS = ("cloned", "split", "pruned_opacity", "pruned_world",
+                 "pruned_screen", "dropped")
+
+
+def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
+                  cur_ts, keyframes, cam: Camera, cfg: TrainConfig,
+                  two_views: bool, sh_degree: int,
+                  densify_enabled: bool = True):
+    """Run ``len(cur_ts)`` mapping iterations.
+
+    cur_ts: the frame mapped at each iteration (host ints). two_views adds a
+    random-keyframe view per iteration (drawn from ``keyframes``, a host
+    list; empty -> frame 0); densify statistics come from that view only.
+    Densify fires every cfg.densify_interval global iterations below
+    cfg.densify_until and the opacity reset every
+    cfg.opacity_reset_interval. After each iteration the mapped frame's
+    rendered depth/color go into the bf16 prediction caches.
+    Returns (state, aux) with last-iteration and chunk diagnostics.
+    """
+    check_supported(cfg)
+    field, opt = state.field, state.opt
+    iteration = state.iteration
+    gen = state.generator
+    dev = field.means.device
+    H, W = cam.height, cam.width
+    kf = list(keyframes) or [0]
+    ndc_scale = torch.tensor([0.5 * W, 0.5 * H], device=dev)
+    pred_depths, pred_colors = state.pred_depths, state.pred_colors
+
+    zero = torch.zeros((), device=dev)
+    nf_total = {k: zero for k in _GROUPS}
+    dens_total = {k: zero for k in _DENSIFY_KEYS}
+    n_densify = n_reset = 0
+    overflow_max = zero
+    inst_max = zero
+    first_nf = None
+    loss = terms = None
+
+    for it_idx, cur_t in enumerate(cur_ts):
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in field.param_dict().items()}
+        probe = torch.zeros(field.capacity, 2, device=dev,
+                            requires_grad=True)
+        sh = torch.cat([params["sh_dc"], params["sh_rest"]], dim=1)
+
+        def view(t_idx, probe_t):
+            out = render(params["means"], params["quats"],
+                         params["log_scales"], params["logit_opacity"], sh,
+                         w2c_all[t_idx], cam, active=field.active,
+                         probe2d=probe_t, sh_degree=sh_degree,
+                         max_instances=cfg.instance_cap, gs_grad=True,
+                         cam_grad=False)
+            rgb = cfg.w_rgb_mapping * losses.rgb_loss(out["render"],
+                                                      colors_all[t_idx])
+            mono = monodeps_all[t_idx]
+            pear = cfg.w_pearson * losses.pearson_depth_loss(
+                mono, out["render_dep"])
+            if cfg.w_local_pearson:
+                x0, y0 = losses.local_pearson_boxes(H, W, gen, device=dev)
+                lpear = cfg.w_local_pearson * losses.local_pearson_loss(
+                    mono, out["render_dep"], x0, y0)
+            else:
+                lpear = torch.zeros((), device=dev)
+            return rgb + pear + lpear, out, torch.stack([rgb, pear, lpear])
+
+        if two_views:
+            pos = int(torch.randint(0, len(kf), (), generator=gen))
+            l0, stats_out, _ = view(kf[pos], probe)
+            l1, cur_out, terms_t = view(cur_t, None)
+            loss_t = l0 + l1
+        else:
+            loss_t, cur_out, terms_t = view(cur_t, probe)
+            stats_out = cur_out
+        names = list(params)
+        grads = torch.autograd.grad(loss_t, [params[k] for k in names]
+                                    + [probe])
+        pgrads = dict(zip(names, grads[:-1]))
+        probe_grad = grads[-1]
+        iteration += 1
+
+        # NaN guard with per-group counts (where numerical trouble starts)
+        nf = {k: _isfinite_count(pgrads[k]) for k in names}
+        nf["probe2d"] = _isfinite_count(probe_grad)
+        nf_iter = sum(nf.values())
+        for k in _GROUPS:
+            nf_total[k] = nf_total[k] + nf[k]
+        if first_nf is None:
+            first_nf = torch.where(nf_iter > 0,
+                                   torch.tensor(float(it_idx), device=dev),
+                                   torch.tensor(-1.0, device=dev))
+        else:
+            first_nf = torch.where((first_nf < 0) & (nf_iter > 0),
+                                   torch.tensor(float(it_idx), device=dev),
+                                   first_nf)
+        pgrads = {k: _finite(g) for k, g in pgrads.items()}
+        probe_grad = _finite(probe_grad)
+
+        field = add_render_stats(field, probe_grad, stats_out["radii"],
+                                 stats_out["visibility"],
+                                 grad_scale=ndc_scale)
+        upd, opt = adam_update(pgrads, opt, cfg.mapping_lrs(iteration, dev))
+        field = field.replace(**apply_updates(
+            {k: v.detach() for k, v in params.items()}, upd))
+
+        if densify_enabled:
+            if (iteration % cfg.densify_interval == 0
+                    and iteration < cfg.densify_until):
+                noise = split_noise(field.capacity, gen, dev)
+                field, opt, ds = densify_and_prune(
+                    field, opt, noise, cfg.densify,
+                    use_screen_size=iteration > cfg.size_threshold_from)
+                for k in _DENSIFY_KEYS:
+                    dens_total[k] = dens_total[k] + getattr(ds, k)
+                n_densify += 1
+            if iteration % cfg.opacity_reset_interval == 0:
+                field, opt = reset_opacity(field, opt)
+                n_reset += 1
+
+        # prediction caches, written in place (the JAX package rebuilds them)
+        with torch.no_grad():
+            pred_depths[cur_t] = cur_out["render_dep"].to(pred_depths.dtype)
+            pred_colors[cur_t] = torch.clamp(cur_out["render"], 0.0, 1.0
+                                             ).to(pred_colors.dtype)
+        for o in (stats_out, cur_out):      # the same dict in one-view
+            overflow_max = torch.maximum(overflow_max,
+                                         o["overflow"].to(torch.float32))
+        inst_max = torch.maximum(inst_max, cur_out["num_instances"].to(
+            torch.float32))
+        loss = loss_t.detach()
+        terms = terms_t.detach()
+
+    state = MappingState(field=field, opt=opt, iteration=iteration,
+                         generator=gen, pred_depths=pred_depths,
+                         pred_colors=pred_colors)
+    nonfinite = sum(nf_total.values())
+    aux = {"loss": loss, "overflow_max": overflow_max,
+           "nonfinite_grads": nonfinite,
+           "loss_terms": terms,            # rgb / pearson / local-pearson
+           "nonfinite_by_group": nf_total,
+           "first_nonfinite_iter": first_nf,   # -1: none
+           "iteration": iteration,
+           "num_instances_max": inst_max,
+           "densify_totals": dens_total,
+           "densify_events": n_densify,
+           "opacity_resets": n_reset,
+           "num_active": field.num_active}
+    return state, aux

@@ -1,0 +1,222 @@
+"""The port's binned compositing (``rasterize``: binning + ``Composite``, which
+runs the plain versions of the CUDA kernels on a CPU tensor) against the JAX
+package: ``rasterize_pallas`` in interpret mode at one tiny size, and the
+dense ``rasterize_oracle`` elsewhere.
+
+Tolerances are the JAX package's own oracle-vs-Pallas gate
+(BASELINE.md): pixels within 2e-5 absolute, and gradients within 5e-5
+after normalizing each by its largest magnitude. Both sides sum the same
+terms in another order (per-tile cumsums against a global one), so they
+agree to f32 reassociation.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from freesurgs_tpu.core.camera import Camera as JCam
+from freesurgs_tpu.ops.oracle import rasterize_oracle
+from freesurgs_tpu.ops.projection import project_gaussians as jproj
+from freesurgs_tpu.ops.raster_pallas import RasterConfig as JRC, \
+    rasterize_pallas
+from freesurgs_tpu.ops.oracle import composite_order_weights as jweights
+from freesurgs_tpu_torch.ops.oracle import composite_order_weights as \
+    tweights, rasterize_oracle as t_oracle
+from freesurgs_tpu_torch.ops.projection import ProjectedGaussians
+from freesurgs_tpu_torch.ops.raster_cuda import RasterConfig, \
+    composite_pair_counts, instance_records, rasterize
+
+PIX_TOL = 2e-5
+GRAD_TOL = 5e-5
+
+
+def scene(n, H, W, seed, saturated=False):
+    rng = np.random.default_rng(seed)
+    cam = JCam(height=H, width=W, fx=0.9 * W, fy=0.9 * W, cx=W / 2,
+               cy=H / 2)
+    if saturated:
+        # a deck of near-opaque, frame-covering Gaussians: every pixel
+        # crosses T < 1e-4 within the first chunks (early termination)
+        means = np.stack([rng.uniform(-0.3, 0.3, n),
+                          rng.uniform(-0.25, 0.25, n),
+                          rng.uniform(0.6, 3.0, n)], -1)
+        scales = np.exp(rng.uniform(-1.5, -0.5, (n, 3)))
+        opac = 1 / (1 + np.exp(-rng.uniform(2.5, 4.0, n)))
+    else:
+        means = np.stack([rng.uniform(-0.8, 0.8, n),
+                          rng.uniform(-0.6, 0.6, n),
+                          rng.uniform(0.3, 3.0, n)], -1)
+        scales = np.exp(rng.uniform(-3.5, -2.0, (n, 3)))
+        opac = rng.uniform(0.0, 1.0, n)
+    quats = rng.normal(size=(n, 4))
+    proj = jproj(jnp.asarray(means, jnp.float32),
+                 jnp.asarray(scales, jnp.float32),
+                 jnp.asarray(quats, jnp.float32), cam)
+    rgbz = np.concatenate([rng.uniform(0, 1, (n, 3)),
+                           np.asarray(proj.depth)[:, None]], 1)
+    return (cam, proj, rgbz.astype(np.float32), opac.astype(np.float32),
+            rng.normal(size=(6, H, W)).astype(np.float32),
+            rng.normal(size=(H, W)).astype(np.float32))
+
+
+def jax_oracle(cam, proj):
+    def f(mean2d, conic, rgbz, opac):
+        z = rgbz[:, 3:4]
+        cols = jnp.concatenate([rgbz, jnp.ones_like(z), z * z], 1)
+        out = rasterize_oracle(proj._replace(mean2d=mean2d, conic=conic),
+                               cols, opac, cam.height, cam.width,
+                               jnp.zeros(6))
+        return out["image"], out["final_T"]
+    return f
+
+
+def port(cam, proj, max_instances=1 << 20):
+    cfg = RasterConfig(cam.height, cam.width, max_instances)
+
+    def f(mean2d, conic, rgbz, opac):
+        p = ProjectedGaussians(mean2d, conic,
+                               *(torch.tensor(np.asarray(x))
+                                 for x in proj[2:]))
+        out = rasterize(p, rgbz, opac, cfg)
+        return out["image"], out["final_T"], out["overflow"]
+    return f
+
+
+def compare(jf, tf, proj, rgbz, opac, g_img, g_T):
+    args = (np.asarray(proj.mean2d), np.asarray(proj.conic), rgbz, opac)
+    (ji, jT), vjp = jax.vjp(jf, *map(jnp.asarray, args))
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    ti, tT, overflow = tf(*ts)
+    assert int(overflow) == 0
+    np.testing.assert_allclose(np.asarray(ji), ti.detach().numpy(),
+                               atol=PIX_TOL)
+    np.testing.assert_allclose(np.asarray(jT), tT.detach().numpy(),
+                               atol=PIX_TOL)
+    jg = vjp((jnp.asarray(g_img), jnp.asarray(g_T)))
+    tg = torch.autograd.grad((ti, tT), ts,
+                             (torch.tensor(g_img), torch.tensor(g_T)))
+    for name, a, b in zip(("mean2d", "conic", "rgbz", "opacity"), jg, tg):
+        a, b = np.asarray(a), b.numpy()
+        scale = max(np.abs(a).max(), 1e-12)
+        np.testing.assert_allclose(a / scale, b / scale, atol=GRAD_TOL,
+                                   err_msg=name)
+    return np.asarray(jT)
+
+
+def test_matches_pallas_interpret():
+    """The JAX kernels themselves (interpret mode) at 64x64."""
+    cam, proj, rgbz, opac, g_img, g_T = scene(300, 64, 64, 0)
+
+    def jf(mean2d, conic, rgbz, opac):
+        cfg = JRC(height=64, width=64, max_instances=8192, interpret=True,
+                  bin_tile=32)
+        out = rasterize_pallas(proj._replace(mean2d=mean2d, conic=conic),
+                               rgbz, opac, cfg)
+        return out["image"], out["final_T"]
+
+    compare(jf, port(cam, proj), proj, rgbz, opac, g_img, g_T)
+
+
+@pytest.mark.parametrize("H,W,n", [(64, 96, 400), (40, 56, 300),
+                                   (33, 70, 250)])
+def test_forward_and_vjp_vs_oracle(H, W, n):
+    """Image sizes that are and are not multiples of the 32 px bin."""
+    cam, proj, rgbz, opac, g_img, g_T = scene(n, H, W, H + W)
+    compare(jax_oracle(cam, proj), port(cam, proj), proj, rgbz, opac,
+            g_img, g_T)
+
+
+def test_saturated_early_termination():
+    cam, proj, rgbz, opac, g_img, g_T = scene(600, 48, 64, 7, saturated=True)
+    final_T = compare(jax_oracle(cam, proj), port(cam, proj), proj, rgbz,
+                      opac, g_img, g_T)
+    assert np.median(final_T) < 1e-3     # saturation really happened
+
+
+def test_overflow_reported_at_cap():
+    cam, proj, rgbz, opac, *_ = scene(400, 64, 96, 3)
+    args = [torch.tensor(np.asarray(a)) for a in
+            (proj.mean2d, proj.conic, rgbz, opac)]
+    _, _, overflow = port(cam, proj, max_instances=256)(*args)
+    assert int(overflow) > 0
+
+
+def test_port_oracle_matches_jax_oracle():
+    """The port's dense oracle (the test reference of its own render) and
+    its closed-form weights against JAX's."""
+    cam, proj, rgbz, opac, g_img, g_T = scene(200, 40, 56, 9)
+    z = rgbz[:, 3:4]
+    cols = np.concatenate([rgbz, np.ones_like(z), z * z], 1)
+    bg = np.linspace(0.2, 1.0, 6).astype(np.float32)
+    j = rasterize_oracle(proj, jnp.asarray(cols), jnp.asarray(opac), 40, 56,
+                         jnp.asarray(bg))
+    t = t_oracle(ProjectedGaussians(*(torch.tensor(np.asarray(x))
+                                      for x in proj)),
+                 torch.tensor(cols), torch.tensor(opac), 40, 56,
+                 torch.tensor(bg))
+    for k in ("image", "final_T"):
+        np.testing.assert_allclose(np.asarray(j[k]), t[k].numpy(),
+                                   atol=PIX_TOL)
+    abar = np.clip(np.random.default_rng(1).uniform(-0.3, 0.99, (50, 30)),
+                   0, None).astype(np.float32)
+    for a, b in zip(jweights(jnp.asarray(abar)),
+                    tweights(torch.tensor(abar))):
+        np.testing.assert_allclose(np.asarray(a), b.numpy(), atol=1e-6)
+
+
+def sequential_pairs(proj, opac, H, W):
+    """Blended and stopping (instance, pixel) pairs of a per-pixel sequential
+    front-to-back walk in numpy f32 over the global depth order, with the
+    CUDA cutoffs and the log-space transmittance of the kernels. H, W are
+    the bin-padded sizes: the kernels composite the padding pixels too."""
+    radius = np.asarray(proj.radius)
+    order = np.argsort(np.where(radius > 0, np.asarray(proj.depth), np.inf),
+                       kind="stable")
+    ys, xs = np.mgrid[0:H, 0:W]
+    px, py = xs.ravel().astype(np.float32), ys.ravel().astype(np.float32)
+    tx, ty = xs.ravel() // 16, ys.ravel() // 16
+    logT = np.zeros(H * W, np.float32)
+    done = np.zeros(H * W, bool)
+    blended = 0
+    for g in order:
+        if radius[g] <= 0:
+            continue
+        mx, my = np.asarray(proj.mean2d[g])
+        a, b, c = np.asarray(proj.conic[g])
+        x0, y0, x1, y1 = np.asarray(proj.tile_rect[g])
+        dx, dy = mx - px, my - py
+        power = np.float32(-0.5) * (a * dx * dx + c * dy * dy) - b * dx * dy
+        raw = opac[g] * np.exp(power)
+        alpha = np.minimum(raw, np.float32(0.99))
+        ok = ((power <= 0) & (raw >= np.float32(1 / 255)) & ~done
+              & (tx >= x0) & (tx < x1) & (ty >= y0) & (ty < y1))
+        T = np.exp(logT)
+        cross = ok & (T * (np.float32(1) - alpha) < np.float32(1e-4))
+        blend = ok & ~cross
+        done |= cross
+        blended += int(blend.sum())
+        logT = np.where(blend, logT + np.log1p(-alpha), logT)
+    return blended, int(done.sum())
+
+
+@pytest.mark.parametrize("saturated", [False, True])
+def test_pair_counts_match_sequential_walk(saturated):
+    """The pair counts behind the kernels' operation bound: blended and
+    stopping pairs equal a per-pixel sequential walk (integer counts,
+    exact); cut pairs are at most the pixel slots the tiles hold."""
+    H, W = 40, 56
+    cam, proj, rgbz, opac, *_ = scene(300, H, W, 11, saturated=saturated)
+    tproj = ProjectedGaussians(*(torch.tensor(np.asarray(x)) for x in proj))
+    cfg = RasterConfig(H, W, 1 << 20)
+    feat, rect, bins = instance_records(tproj, torch.tensor(rgbz),
+                                        torch.tensor(opac), cfg)
+    pairs = composite_pair_counts(feat, rect, bins.tile_start,
+                                  bins.tile_count, cfg.grid_x)
+    blended, stopping = sequential_pairs(proj, opac, 32 * cfg.grid_y,
+                                         32 * cfg.grid_x)
+    assert blended > 0 and (stopping > 0) == saturated
+    assert (pairs["blended"], pairs["stopping"]) == (blended, stopping)
+    slots = int(bins.tile_count.sum()) * 32 * 32
+    assert 0 < sum(pairs.values()) <= slots
