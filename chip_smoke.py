@@ -6,17 +6,24 @@
 Phases, each printing one JSON line with its seconds:
   1. device  — torch's device name and count, and nvidia-smi's name and
      power limit (also printed raw on a line of its own);
-  2. build   — nvcc builds every kernel from csrc/ (ptxas registers, shared
-     memory and spills per kernel);
-  3. parity  — each compositing kernel against its plain PyTorch version on
-     bench.py's scene (100k Gaussians, SH3, 1280x1024, seed 0);
-  4. timing  — CUDA-event times of each kernel and its plain version, with
+  2. build   — nvcc builds every kernel library from csrc/ (ptxas registers,
+     shared memory and spills per kernel, each ablation variant included);
+  3. parity  — K1 and K2 against their plain PyTorch versions on bench.py's
+     scene (100k Gaussians, SH3, 1280x1024, seed 0);
+  4. timing  — CUDA-event times of K1 / K2 and their plain versions, with
      the least time the card could take (bound_ms);
-  5. slice   — the progressive SLAM trainer at 1280x1024 from 131,072
-     initial Gaussians, depth cut through TrainConfig so that densify, the
-     opacity reset and SH degree 3 all happen; launch counters reset just
-     before it and read just after;
-  6. kernels — one JSON line with every kernel's numbers;
+  5. ablate  — K3, the ablation family of K1 (ops/raster_ablate.py): the
+     timing run over every variant on the bench scene, its launch counts
+     read just after; then each variant against its plain version
+     (baseline and noshared against K1 bit for bit);
+  6. slice   — the training job at 1280x1024 from 131,072 initial
+     Gaussians, depth cut through TrainConfig: progressive SLAM with the
+     default GN tracking (densify, the opacity reset at its last mapping
+     iteration, SH degree 3), 40 global iterations with two validations
+     and two periodic checkpoints, then save, restore into a fresh Trainer
+     and 10 more global iterations there. Launch counters reset just before
+     it and read just after;
+  7. kernels — one JSON line with every kernel's numbers;
 then, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, when there is no CUDA device or
@@ -30,6 +37,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -50,6 +58,21 @@ PEAK_F32_PER_S = 67e12
 FWD_OPS = {"cut": 14, "stopping": 19, "blended": 34}
 BWD_OPS = {"cut": 14, "stopping": 19, "blended": 78}
 
+
+def ablate_ops(mech) -> dict[str, int]:
+    """FWD_OPS for an ablation variant: without the stop a blended pair
+    skips the T (1 - alpha) test (3); with linear T it skips T = exp(logT)
+    (1), the update T *= 1 - alpha costing what logT += log1p(-alpha) did.
+    The rect tests are integer work either way."""
+    ops = dict(FWD_OPS)
+    if not mech.stop:
+        ops["blended"] -= 3
+    if mech.linear_t:
+        ops["blended"] -= 1
+        ops["stopping"] -= 1
+    return ops
+
+
 # Kernel vs plain tolerances. Both sum the same terms in another order
 # (sequential f32 in the kernel, cumsum + einsum in the plain version), so
 # outputs agree to f32 reassociation; the stop decisions compare
@@ -59,6 +82,7 @@ FWD_CHANNEL_TOL = 2e-5      # per channel, relative to max(1, |channel|)
 FWD_STOP_DIFF_FRAC = 1e-4   # share of pixels whose stop index may differ
 BWD_FIELD_TOL = 5e-5        # per-Gaussian gradient, normalized per field
 #                             (the JAX package's oracle-vs-Pallas gate)
+GN_MIN_WEIGHT = 64.0        # flow_pnp_refine's degenerate-frame guard
 
 
 def phase(name: str, t0: float, **kw) -> None:
@@ -71,68 +95,43 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+def fwd_gates(out_k, out_p, H, W, name):
+    """Per-channel errors of a forward-shaped kernel against its plain
+    version, the stop-index differences, and the gate failures."""
+    fails, ch_err = [], []
+    for c in range(7):
+        a, b = out_k[c, :H, :W], out_p[c, :H, :W]
+        ch_err.append(float((a - b).abs().max()))
+        scale = max(1.0, float(b.abs().max()))
+        if not ch_err[-1] <= FWD_CHANNEL_TOL * scale:
+            fails.append(f"{name} channel {c}: max abs err {ch_err[-1]} > "
+                         f"{FWD_CHANNEL_TOL} x {scale}")
+    stop_diff = int((out_k[7] != out_p[7]).sum())
+    if not stop_diff <= FWD_STOP_DIFF_FRAC * out_k[7].numel():
+        fails.append(f"{name}: {stop_diff} pixels stop at another instance")
+    return ch_err, stop_diff, fails
 
 
-def bench_scene(dev):
-    """bench.py's full-resolution scene recipe, seed 0."""
-    import numpy as np
-    import torch
-    from freesurgs_tpu_torch.core.camera import Camera
-    H, W, N = 1024, 1280, 100_000
-    rng = np.random.default_rng(0)
-    cam = Camera(height=H, width=W, fx=W * 0.78, fy=W * 0.78, cx=W / 2,
-                 cy=H / 2)
-    means = np.stack([rng.uniform(-1.2, 1.2, N), rng.uniform(-1.0, 1.0, N),
-                      rng.uniform(0.8, 4.0, N)], -1).astype(np.float32)
-    quats = rng.normal(size=(N, 4)).astype(np.float32)
-    log_scales = np.log(rng.uniform(0.004, 0.012, (N, 3))).astype(np.float32)
-    logit_op = rng.uniform(-2, 2, N).astype(np.float32)
-    sh = (rng.normal(size=(N, 16, 3)).astype(np.float32) * 0.3)
-    t = [torch.as_tensor(x, device=dev) for x in
-         (means, quats, log_scales, logit_op, sh)]
-    return cam, t
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
 
 
-def records_for(cam, params):
-    """Project the scene and bin it exactly as render() does."""
-    import torch
-    from freesurgs_tpu_torch.core.sh import sh_to_rgb_clamped
-    from freesurgs_tpu_torch.ops.projection import project_gaussians
-    from freesurgs_tpu_torch.ops.raster_cuda import instance_records
-    from freesurgs_tpu_torch.ops.render import raster_config
-    means, quats, log_scales, logit_op, sh = params
-    with torch.no_grad():
-        proj = project_gaussians(means, torch.exp(log_scales), quats, cam)
-        opac = torch.sigmoid(logit_op)
-        dirs = means * torch.rsqrt(torch.clamp_min(
-            (means * means).sum(-1, keepdim=True), 1e-16))
-        rgb = sh_to_rgb_clamped(3, sh, dirs)
-        rgbz = torch.cat([rgb, proj.depth[:, None]], dim=1)
-        cfg = raster_config(cam)
-        feat, rect, bins = instance_records(proj, rgbz, opac, cfg)
-    return cfg, feat, rect, bins, means.shape[0]
+def fwd_bytes(m: int, nt: int, gx: int, gy: int, bin_px: int) -> int:
+    """feat and rect read once, starts / counts read and keff written, the
+    (8, Hp, Wp) output written once."""
+    return 4 * (10 * m + m + 3 * nt) + 8 * gy * bin_px * gx * bin_px * 4
 
 
-def parity_and_timing(dev, results):
+def parity_and_timing(dev, bench, results):
     import torch
     from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.ops.raster_ablate import cuda_ms
 
     t0 = time.time()
-    cam, params = bench_scene(dev)
-    cfg, feat, rect, bins, n = records_for(cam, params)
+    cam, cfg, feat, rect, bins, n = bench
     gx, gy = cfg.grid_x, cfg.grid_y
     starts, counts, gidx = bins.tile_start, bins.tile_count, bins.gather_idx
     m = feat.shape[1]
@@ -143,19 +142,8 @@ def parity_and_timing(dev, results):
     out_p, keff_p = rc.composite_fwd_plain(feat, rect, starts, counts, gx, gy)
     torch.cuda.synchronize()
     H, W = cam.height, cam.width
-    fails = []
-    ch_err = []
-    for c in range(7):
-        a, b = out_k[c, :H, :W], out_p[c, :H, :W]
-        ch_err.append(float((a - b).abs().max()))
-        scale = max(1.0, float(b.abs().max()))
-        if not ch_err[-1] <= FWD_CHANNEL_TOL * scale:
-            fails.append(f"K1 channel {c}: max abs err {ch_err[-1]} > "
-                         f"{FWD_CHANNEL_TOL} x {scale}")
-    stop_diff = int((out_k[7] != out_p[7]).sum())
+    ch_err, stop_diff, fails = fwd_gates(out_k, out_p, H, W, "K1")
     keff_diff = int((keff_k != keff_p).sum())
-    if not stop_diff <= FWD_STOP_DIFF_FRAC * out_k[7].numel():
-        fails.append(f"K1: {stop_diff} pixels stop at another instance")
     fwd_err = max(ch_err)
 
     gen = torch.Generator(device=dev)
@@ -212,28 +200,25 @@ def parity_and_timing(dev, results):
     bwd_ops = float(sum(BWD_OPS[k] * v for k, v in pairs.items()))
     nt = gx * gy
     img = 8 * gy * rc.BIN * gx * rc.BIN * 4
-    fwd_bytes = 4 * (rc.N_FIELD * m + m + 3 * nt) + img
+    f_bytes = fwd_bytes(m, nt, gx, gy, rc.BIN)
     bwd_bytes = 4 * (2 * rc.N_FIELD * m + m + 3 * nt) + 2 * img * 7 // 8
     kernels = []
     for name, src, rep, ms, pms, ops, nbytes, err in (
             ("composite_fwd", "freesurgs_tpu_torch/csrc/composite_fwd.cu",
              "freesurgs_tpu/ops/raster_pallas.py:307", ms_fwd, plain_fwd,
-             fwd_ops, fwd_bytes, fwd_err),
+             fwd_ops, f_bytes, fwd_err),
             ("composite_bwd", "freesurgs_tpu_torch/csrc/composite_bwd.cu",
              "freesurgs_tpu/ops/raster_pallas.py:415", ms_bwd, plain_bwd,
              bwd_ops, bwd_bytes, inst_err)):
-        t_ops = ops / PEAK_F32_PER_S * 1e3
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ms, b_by = bound(ops, nbytes)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     results["kernels"] = kernels
     phase("timing", t0, instances=m, keff_sum=int(keff_k.sum()),
           pairs=pairs, pixel_slots_to_keff=slots, fwd_ops=fwd_ops,
-          bwd_ops=bwd_ops, fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes,
+          bwd_ops=bwd_ops, fwd_bytes=f_bytes, bwd_bytes=bwd_bytes,
           fwd_ms=ms_fwd, bwd_ms=ms_bwd, fwd_plain_ms=plain_fwd,
           bwd_plain_ms=plain_bwd,
           fwd_bound_ms=kernels[0]["bound_ms"],
@@ -242,6 +227,72 @@ def parity_and_timing(dev, results):
           bwd_share_of_bound=kernels[1]["bound_ms"] / ms_bwd,
           library_ms=None,
           library_note="no single PyTorch call computes this function")
+    return out_k, keff_k
+
+
+def run_ablate(bench, k1_out, k1_keff, results):
+    """K3's path (the ablation timing run, counted), then each variant
+    against its plain version (not counted)."""
+    import torch
+    from freesurgs_tpu_torch.ops import raster_ablate as ra
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.ops.raster_ablate import cuda_ms
+
+    t0 = time.time()
+    cam, cfg, feat, rect, bins, _ = bench
+    gx, gy = cfg.grid_x, cfg.grid_y
+    args = (feat, rect, bins.tile_start, bins.tile_count, gx, gy)
+    H, W = cam.height, cam.width
+
+    ra.reset_launches()
+    ms = ra.run_ablation(*args, iters=20)
+    torch.cuda.synchronize()
+    launches = dict(ra.LAUNCHES)
+
+    m, nt = feat.shape[1], gx * gy
+    nbytes = fwd_bytes(m, nt, gx, gy, rc.BIN)
+    variants, fails = {}, []
+    for name, mech in ra.VARIANTS.items():
+        out_k, keff_k = ra.composite_fwd_ablate(name, *args)
+        torch.cuda.synchronize()
+        out_p, keff_p = ra.composite_fwd_ablate_plain(name, *args)
+        torch.cuda.synchronize()
+        ch_err, stop_diff, f = fwd_gates(out_k, out_p, H, W, f"K3 {name}")
+        fails += f
+        row = {"ms": ms[name], "minus_baseline_ms": ms[name] - ms["baseline"],
+               "launches": launches[name], "max_abs_err_per_channel": ch_err,
+               "stop_index_diff": stop_diff,
+               "keff_diff": int((keff_k != keff_p).sum())}
+        if name in ("baseline", "noshared"):
+            same = torch.equal(out_k, k1_out) and torch.equal(keff_k,
+                                                              k1_keff)
+            row["equal_to_k1_bitwise"] = same
+            if not same:
+                fails.append(f"K3 {name} differs from K1")
+        pairs = ra.ablate_pair_counts(name, feat, rect, bins.tile_start,
+                                      bins.tile_count, gx)
+        ops = float(sum(ablate_ops(mech)[k] * v for k, v in pairs.items()))
+        b_ms, b_by = bound(ops, nbytes)
+        row.update(pairs=pairs, ops=ops, bound_ms=b_ms, bound_by=b_by,
+                   share_of_bound=b_ms / ms[name])
+        row["plain_ms"] = cuda_ms(lambda n=name: ra.composite_fwd_ablate_plain(
+            n, *args), iters=2, warmup=1)
+        variants[name] = row
+        results["kernels"].append({
+            "name": f"composite_fwd_ablate.{name}", "route": "cuda",
+            "source": "freesurgs_tpu_torch/csrc/composite_fwd_ablate.cu",
+            "replaces": "scripts/kernel_overhead.py:34",
+            "launches": launches[name], "max_abs_err": max(ch_err),
+            "ms": ms[name], "plain_ms": row["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
+    phase("ablate", t0, instances=m, variants=variants,
+          tolerances={"fwd_channel": FWD_CHANNEL_TOL,
+                      "fwd_stop_frac": FWD_STOP_DIFF_FRAC,
+                      "baseline_noshared": "bitwise equal to K1"},
+          library_note="no single PyTorch call computes these functions")
+    check(not fails, "; ".join(fails))
+    check(all(v > 0 for v in launches.values()),
+          f"an ablation variant never launched: {launches}")
 
 
 def psnr(img, gt) -> float:
@@ -250,54 +301,120 @@ def psnr(img, gt) -> float:
     return -10.0 * math.log10(max(mse, 1e-12))
 
 
-def run_slice(dev, results):
+def dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def run_slice(dev, results, ckpt_root: Path):
     import torch
     from freesurgs_tpu_torch.core.transforms import quat_to_rotmat
     from freesurgs_tpu_torch.data.synthetic import SceneSequence, make_scene
     from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.ops.raster_ablate import cuda_ms
+    from freesurgs_tpu_torch.train.flow_pnp import flow_pnp_refine
     from freesurgs_tpu_torch.train.loop import Trainer
     from freesurgs_tpu_torch.train.steps import TrainConfig
 
     t0 = time.time()
     # scripts/make_fullres_dataset.py's recipe, 4 frames. Frame 1 is a test
     # frame: tracked and rendered into the depth cache (which frame 2's
-    # flow loss reads), not mapped.
-    scene = make_scene(num_frames=4, n_gaussians=20000, height=1024,
+    # flow loss and GN solve read), not mapped.
+    n_frames = 4
+    scene = make_scene(num_frames=n_frames, n_gaussians=20000, height=1024,
                        width=1280, seed=7, scale_range=(0.004, 0.012),
                        device=dev)
     seq = SceneSequence(scene, i_test=[1])
-    cfg = TrainConfig(tracking_gn_iters=0, first_frame_mapping_iters=30,
-                      mapping_iters=10, tracking_iters=10,
-                      densify_interval=40, opacity_reset_interval=50,
-                      sh_increase_interval=10)
+    seq.gt_poses = {"synthetic": scene.gt_w2c.cpu().numpy()}
+    seq.boundaries = [0, n_frames]
+    # The opacity reset fires at iteration 50, the last progressive mapping
+    # iteration; the 40 global iterations (51-90) then fit the map again
+    # before a second reset could fire (100).
+    cfg = TrainConfig(first_frame_mapping_iters=30, mapping_iters=10,
+                      tracking_iters=10, densify_interval=40,
+                      opacity_reset_interval=50, sh_increase_interval=10)
+    ckpt_dir = ckpt_root / "run"
+    tkw = dict(sh_degree_max=3, init_mask_frac=0.1, device=dev,
+               global_chunk=10, validation_every=20, checkpoint_every=20,
+               checkpoint_dir=str(ckpt_dir))
     logs = []
-    tr = Trainer(seq, cfg, sh_degree_max=3, init_mask_frac=0.1, device=dev,
-                 log_fn=logs.append)
+    tr = Trainer(seq, cfg, log_fn=logs.append, **tkw)
     torch.cuda.synchronize()
     phase("slice_setup", t0, init_gaussians=int(tr.field.num_active),
           capacity=tr.field.capacity, log=logs[:])
     check(int(tr.field.num_active) == 131_072, "expected 131,072 Gaussians")
+    logs.clear()
 
+    # ---- the main path, counters reset just before it
     rc.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
+    t_run = time.time()
+    renders = 0                     # render_frame / validation calls below
     out_before = tr.render_frame(0)
+    renders += 1
     psnr_before = psnr(out_before["render"], seq.colors[0])
     tr.progressive_run()
     torch.cuda.synchronize()
-    seconds = time.time() - t0
-    launches = dict(rc.LAUNCHES)
+    prog_seconds = time.time() - t_run
+    out_reset = tr.render_frame(0)
+    renders += 1
+    psnr_post_reset = psnr(out_reset["render"], seq.colors[0])
+    psnr_cached = psnr(tr.state.pred_colors[0].float(), seq.colors[0])
 
-    n_train = [t for t in range(4) if t in set(seq.i_train.tolist())]
-    n_test = [t for t in range(4) if t not in n_train]
-    exp_fwd, exp_bwd, iters = 1, 0, 0     # the render_frame(0) above
-    for t in range(4):
+    t1 = time.time()
+    tr.global_run(40)
+    torch.cuda.synchronize()
+    global_seconds = time.time() - t1
+    out_end = tr.render_frame(0)
+    renders += 1
+    psnr_end = psnr(out_end["render"], seq.colors[0])
+    t1 = time.time()
+    val = tr.validation()
+    torch.cuda.synchronize()
+    val_seconds = time.time() - t1
+    renders += len(seq.i_test)
+
+    # save, restore into a fresh Trainer, compare, continue there
+    t1 = time.time()
+    tr.save(str(ckpt_root / "ckpt_final"))
+    save_seconds = time.time() - t1
+    fresh = Trainer(seq, cfg, log_fn=logs.append, **tkw)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    fresh.restore(str(ckpt_root / "ckpt_final"))
+    torch.cuda.synchronize()
+    restore_seconds = time.time() - t1
+    fields_equal = all(torch.equal(getattr(tr.field, k),
+                                   getattr(fresh.field, k))
+                       for k in ("means", "quats", "log_scales",
+                                 "logit_opacity", "sh_dc", "sh_rest",
+                                 "active", "max_radii2d", "grad_accum",
+                                 "grad_denom"))
+    poses_equal = (torch.equal(tr.poses.quats, fresh.poses.quats)
+                   and torch.equal(tr.poses.trans, fresh.poses.trans))
+    render_equal = torch.equal(tr.render_frame(0)["render"],
+                               fresh.render_frame(0)["render"])
+    renders += 2
+    done_before = fresh._global_done
+    t1 = time.time()
+    fresh.global_run(10)
+    torch.cuda.synchronize()
+    resumed_seconds = time.time() - t1
+    seconds = time.time() - t_run
+    launches = dict(rc.LAUNCHES)
+    # ---- end of the main path
+
+    prog = [h for h in tr.history if h["stage"] == "progressive"]
+    glob = [h for h in tr.history if h["stage"] == "global"]
+    vals = [h for h in tr.history if h["stage"] == "global_val"]
+    n_train = [t for t in range(n_frames) if t in set(seq.i_train.tolist())]
+    exp_fwd, exp_bwd, iters = renders, 0, 0
+    for t in range(n_frames):
         if t > 0:
             exp_fwd += cfg.tracking_iters
             exp_bwd += cfg.tracking_iters
             iters += cfg.tracking_iters
-        if t in n_test:
-            exp_fwd += 1
+        if t not in n_train:
+            exp_fwd += 1                  # the test frame's cache render
         elif t == 0:
             exp_fwd += cfg.first_frame_mapping_iters
             exp_bwd += cfg.first_frame_mapping_iters
@@ -306,9 +423,12 @@ def run_slice(dev, results):
             exp_fwd += 2 * cfg.mapping_iters
             exp_bwd += 2 * cfg.mapping_iters
             iters += cfg.mapping_iters
+    global_iters = 40 + 10
+    exp_fwd += global_iters + len(vals) * len(seq.i_test)
+    exp_bwd += global_iters
 
     frames = []
-    for h in tr.history:
+    for h in prog:
         t = h["frame"]
         R_est = quat_to_rotmat(tr.poses.quats[t])
         R_gt = quat_to_rotmat(scene.gt_quats[t])
@@ -320,27 +440,57 @@ def run_slice(dev, results):
             "trans_err": float(torch.linalg.norm(tr.poses.trans[t]
                                                  - scene.gt_trans[t])),
             "rot_err_deg": rot_deg})
-    # The opacity reset fires at iteration 50, the run's last mapping
-    # iteration, clamping every opacity to 0.01: a render after the run
-    # shows that reset, not the fit. The fit of frame 0 is its render that
-    # the trainer cached after frame 0's last mapping iteration.
-    psnr_cached = psnr(tr.state.pred_colors[0].float(), seq.colors[0])
-    out_end = tr.render_frame(0)
-    psnr_end = psnr(out_end["render"], seq.colors[0])
+
+    # GN's cost on one tracked frame's inputs (frame 2, from frame 1's cache)
+    rigid = tr._rigid_mask(2)
+    with torch.no_grad():
+        prev_w2c = tr.poses.w2c(1)
+    gn_ms = cuda_ms(lambda: flow_pnp_refine(
+        tr.poses.quats[2], tr.poses.trans[2], tr.state.pred_depths[1],
+        prev_w2c, tr.flows_fw[1], tr.cam, rigid_mask=rigid,
+        iters=cfg.tracking_gn_iters), iters=5, warmup=1)
+
     losses = [f[k] for f in frames for k in ("loss", "rgb_loss", "flow_loss")
-              if k in f]
+              if k in f] + [h["loss"] for h in glob]
     densify_events = sum(f.get("densify_events", 0) for f in frames)
     resets = sum(f.get("opacity_resets", 0) for f in frames)
     # every render of the run: tracking, both mapping views, the cache
-    # render (each frame's history row), and the two render_frame(0) calls
+    # render, the global stage, validation and the render_frame calls
     overflow = max([f["overflow"] for f in frames]
-                   + [float(out_before["overflow"]),
-                      float(out_end["overflow"])])
-    phase("slice", t0, frames=frames, train_seconds=seconds,
-          iterations=iters, iterations_per_s=iters / seconds,
+                   + [h["overflow"] for h in glob + vals]
+                   + [float(o["overflow"]) for o in
+                      (out_before, out_reset, out_end)]
+                   + [val["overflow"]])
+    ckpts = sorted(p.name for p in ckpt_dir.iterdir() if p.is_dir())
+    ckpt_bytes = dir_bytes(ckpt_root / "ckpt_final")
+    gn_weights = [f["gn_weight"] for f in frames if "gn_weight" in f]
+    val_keys = ("psnr", "ssim", "lpips", "ate", "rpe_trans", "rpe_rot_deg")
+    phase("slice", t0, frames=frames, run_seconds=seconds,
+          progressive_seconds=prog_seconds, progressive_iterations=iters,
+          progressive_iterations_per_s=iters / prog_seconds,
+          global_seconds=global_seconds, global_iterations=40,
+          global_iterations_per_s_with_val_and_ckpt=40 / global_seconds,
+          resumed_global_seconds=resumed_seconds,
+          resumed_global_iterations_per_s=10 / resumed_seconds,
+          gn_ms_per_frame=gn_ms, gn_weight=gn_weights,
+          gn_resid_px=[f["gn_resid_px"] for f in frames
+                       if "gn_resid_px" in f],
+          validation_seconds=val_seconds,
+          validation={k: val[k] for k in val_keys + ("lpips_backend",)},
+          global_validations=[{k: h.get(k) for k in ("iter",) + val_keys}
+                              for h in vals],
+          checkpoints=ckpts, checkpoint_bytes=ckpt_bytes,
+          save_seconds=save_seconds, restore_seconds=restore_seconds,
+          restore={"fields_equal": fields_equal, "poses_equal": poses_equal,
+                   "keyframes_equal": fresh.keyframes == tr.keyframes,
+                   "render_frame0_bitwise_equal": render_equal,
+                   "global_done_before_resume": done_before,
+                   "global_done_after_resume": fresh._global_done},
           psnr_frame0_before=psnr_before,
           psnr_frame0_after_mapping=psnr_cached,
-          psnr_frame0_end_of_run=psnr_end, overflow_max=overflow,
+          psnr_frame0_post_reset=psnr_post_reset,
+          psnr_frame0_end_of_run=psnr_end,
+          global_losses=[h["loss"] for h in glob], overflow_max=overflow,
           launches=launches,
           expected_launches={"composite_fwd": exp_fwd,
                              "composite_bwd": exp_bwd},
@@ -351,8 +501,30 @@ def run_slice(dev, results):
           log=logs)
     check(all(math.isfinite(x) for x in losses + [psnr_end]),
           f"non-finite loss or PSNR {losses} {psnr_end}")
+    check(all(math.isfinite(f[k]) for f in frames
+              for k in ("trans_err", "rot_err_deg")),
+          "non-finite pose error")
+    # every tracked frame's previous frame has a depth cache here (frame
+    # 0's prior, frame 1's test-frame render, frame 2's mapping)
+    check(len(gn_weights) == n_frames - 1
+          and all(w >= GN_MIN_WEIGHT for w in gn_weights),
+          f"GN fell back to the init: weights {gn_weights}")
     check(psnr_cached > psnr_before,
           f"frame-0 PSNR did not improve: {psnr_before} -> {psnr_cached}")
+    check(psnr_end > psnr_post_reset,
+          f"the global stage did not fit frame 0 again after the reset: "
+          f"{psnr_post_reset} -> {psnr_end}")
+    check([h["iter"] for h in vals] == [20, 40]
+          and all(math.isfinite(h[k]) for h in vals for k in val_keys)
+          and val["lpips_backend"] in ("weights", "random_features"),
+          f"validation rows {vals}")
+    check(ckpts == ["ckpt_0000020", "ckpt_0000040"],
+          f"periodic checkpoints {ckpts}")
+    check(fields_equal and poses_equal and render_equal
+          and fresh.keyframes == tr.keyframes,
+          "the restored Trainer differs from the saved one")
+    check(done_before == 40 and fresh._global_done == 50,
+          f"global counter {done_before} -> {fresh._global_done}")
     check(launches == {"composite_fwd": exp_fwd, "composite_bwd": exp_bwd},
           f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
     check(overflow == 0, f"instance overflow {overflow}")
@@ -360,7 +532,30 @@ def run_slice(dev, results):
     check(resets >= 1, "the opacity reset never ran")
     check(tr.active_sh_degree == 3, "SH degree 3 not reached")
     for k in results["kernels"]:
-        k["launches"] = launches[k["name"]]
+        if k["name"] in launches:
+            k["launches"] = launches[k["name"]]
+
+
+def ptxas_report(reports: dict[str, str]) -> dict:
+    """Registers, shared memory and spills of each compiled kernel; the
+    ablation's template instances are named by their variant."""
+    from freesurgs_tpu_torch.ops.raster_ablate import VARIANTS
+    by_switches = {(m.stop, m.rect_mask, m.shared, not m.linear_t): name
+                   for name, m in VARIANTS.items()}
+    out = {}
+    for lib, rep in reports.items():
+        for block in rep.split("Compiling entry function")[1:]:
+            fn = block.split("'")[1]
+            switches = tuple(b == "1" for b in re.findall(r"Lb([01])E", fn))
+            name = (f"composite_fwd_ablate.{by_switches[switches]}"
+                    if "ablate" in fn else lib)
+            regs = re.findall(r"Used (\d+) registers", block)
+            smem = re.findall(r"(\d+) bytes smem", block)
+            spill = re.findall(r"(\d+) bytes spill stores", block)
+            out[name] = {"registers": int(regs[0]) if regs else None,
+                         "smem_bytes": int(smem[0]) if smem else 0,
+                         "spill_store_bytes": int(spill[0]) if spill else 0}
+    return out
 
 
 def main() -> int:
@@ -373,7 +568,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    # full f32 everywhere (SSIM's variance cancellation, the 3-NN matmul)
+    # full f32 everywhere (SSIM's variance cancellation, the GN normal
+    # equations, the 3-NN matmul, LPIPS's convolutions)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -390,21 +586,20 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.ops.raster_ablate import bench_scene, \
+        records_for
     t0 = time.time()
     reports = rc.build_kernels()
-    ptxas = {}
-    for name, rep in reports.items():
-        regs = re.findall(r"Used (\d+) registers", rep)
-        smem = re.findall(r"(\d+) bytes smem", rep)
-        spill = re.findall(r"(\d+) bytes spill stores", rep)
-        ptxas[name] = {"registers": [int(x) for x in regs],
-                       "smem_bytes": [int(x) for x in smem],
-                       "spill_store_bytes": [int(x) for x in spill]}
-    phase("build", t0, built=sorted(reports), ptxas=ptxas)
+    phase("build", t0, built=sorted(reports), ptxas=ptxas_report(reports))
 
+    cam, params = bench_scene(dev)
+    bench = (cam,) + records_for(cam, params)
     results: dict = {}
-    parity_and_timing(dev, results)
-    run_slice(dev, results)
+    k1_out, k1_keff = parity_and_timing(dev, bench, results)
+    run_ablate(bench, k1_out, k1_keff, results)
+    del bench, params, k1_out, k1_keff
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        run_slice(dev, results, Path(ckpt_root))
     print(json.dumps({"kernels": results["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -55,7 +55,8 @@ def pixel_grid(height: int, width: int, dtype=torch.float32,
 def backproject(depth: torch.Tensor, cam: Camera,
                 c2w: torch.Tensor | None = None) -> torch.Tensor:
     """Back-project an (H, W) depth map to (H*W, 3) points (world frame if
-    ``c2w`` is given)."""
+    ``c2w`` is given). The grid and the camera-frame points are in the
+    depth's dtype; the transform promotes them to ``c2w``'s, as JAX does."""
     H, W = depth.shape[-2], depth.shape[-1]
     xg, yg = pixel_grid(H, W, dtype=depth.dtype, device=depth.device)
     z = depth.reshape(-1)
@@ -63,6 +64,7 @@ def backproject(depth: torch.Tensor, cam: Camera,
     y = (yg.reshape(-1) - cam.cy) / cam.fy * z
     pts = torch.stack([x, y, z], dim=-1)
     if c2w is not None:
+        pts = pts.to(torch.promote_types(pts.dtype, c2w.dtype))
         pts = pts @ c2w[:3, :3].T + c2w[:3, 3]
     return pts
 

@@ -34,6 +34,33 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation(s) -> (..., 4) unit quaternion(s) with w >= 0.
+
+    Branch-free Shepperd: four candidate constructions, the best-conditioned
+    (largest diagonal term) picked per element."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    qw = torch.stack([1.0 + m00 + m11 + m22, 1.0 + m00 - m11 - m22,
+                      1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    qw = torch.sqrt(torch.clamp_min(qw, 1e-12)) * 0.5
+    d = 4.0 * qw
+    c0 = torch.stack([qw[..., 0], (m21 - m12) / d[..., 0],
+                      (m02 - m20) / d[..., 0], (m10 - m01) / d[..., 0]], -1)
+    c1 = torch.stack([(m21 - m12) / d[..., 1], qw[..., 1],
+                      (m01 + m10) / d[..., 1], (m02 + m20) / d[..., 1]], -1)
+    c2 = torch.stack([(m02 - m20) / d[..., 2], (m01 + m10) / d[..., 2],
+                      qw[..., 2], (m12 + m21) / d[..., 2]], -1)
+    c3 = torch.stack([(m10 - m01) / d[..., 3], (m02 + m20) / d[..., 3],
+                      (m12 + m21) / d[..., 3], qw[..., 3]], -1)
+    cands = torch.stack([c0, c1, c2, c3], dim=-2)          # (..., 4, 4)
+    best = torch.argmax(qw, dim=-1)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = quat_normalize(torch.gather(cands, -2, idx)[..., 0, :])
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
 def build_w2c(quat: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """4x4 world->camera from (..., 4) quat and (..., 3) translation."""
     R = quat_to_rotmat(quat)

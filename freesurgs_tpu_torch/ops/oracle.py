@@ -26,19 +26,37 @@ ALPHA_MAX = 0.99
 T_EPS = 1e-4
 
 
-def _order_terms(abar: torch.Tensor, dim: int):
+def _order_terms(abar: torch.Tensor, dim: int, stop: bool = True,
+                 linear_t: bool = False):
     """(weights, T_final, valid, crossed_incl) of the front-to-back blend of
-    ``abar`` along ``dim``; crossed_incl > 0 from the stopping Gaussian on."""
-    log1m = torch.log1p(-abar)
-    cum_incl = torch.cumsum(log1m, dim=dim)
-    cum_excl = cum_incl - log1m
-    T_pre = torch.exp(cum_excl)
+    ``abar`` along ``dim``; crossed_incl > 0 from the stopping Gaussian on.
+
+    The switches give the compositing-kernel ablation's functions
+    (ops/raster_ablate.py): ``stop=False`` drops the T < 1e-4 stop (every
+    contributing Gaussian blends); ``linear_t`` carries T as a running
+    product of (1 - alpha) instead of in log space."""
     contributes = abar > 0
+    if linear_t:
+        one_m = 1.0 - abar
+        incl = torch.cumprod(one_m, dim=dim)
+        T_pre = torch.cat([torch.ones_like(incl.narrow(dim, 0, 1)),
+                           incl.narrow(dim, 0, abar.shape[dim] - 1)], dim=dim)
+    else:
+        log1m = torch.log1p(-abar)
+        cum_incl = torch.cumsum(log1m, dim=dim)
+        cum_excl = cum_incl - log1m
+        T_pre = torch.exp(cum_excl)
     crossed = contributes & (T_pre * (1.0 - abar) < T_EPS)
+    if not stop:
+        crossed = torch.zeros_like(crossed)
     crossed_incl = torch.cumsum(crossed.to(torch.int32), dim=dim)
     valid = contributes & (crossed_incl == 0)
     weights = abar * T_pre * valid
-    T_final = torch.exp(torch.sum(log1m * valid, dim=dim))
+    if linear_t:
+        T_final = torch.prod(torch.where(valid, one_m,
+                                         torch.ones_like(one_m)), dim=dim)
+    else:
+        T_final = torch.exp(torch.sum(log1m * valid, dim=dim))
     return weights, T_final, valid, crossed_incl
 
 

@@ -201,13 +201,14 @@ def _batch_inputs(starts, counts, tiles, device):
     return tl, slot_ok, idx
 
 
-def _tile_alpha(feat_b, rect_b, slot_ok, tl, grid_x):
+def _tile_alpha(feat_b, rect_b, slot_ok, tl, grid_x, rect_mask=True):
     """Alphas of a batch of B tiles with L slots each, at every pixel.
 
     feat_b (10, B, L), rect_b (B, L) int32, slot_ok (B, L) bool.
     Returns (abar (B, NPIX, L), 0 where a cutoff fails or the 16 px rect
     misses the pixel; tested (B, NPIX, L), the slot's rect covers the
-    pixel).
+    pixel). ``rect_mask=False`` lets every rect cover every pixel (the
+    ablation's ``norect``).
     """
     dev = feat_b.device
     p = torch.arange(NPIX, device=dev)
@@ -220,41 +221,51 @@ def _tile_alpha(feat_b, rect_b, slot_ok, tl, grid_x):
     abar = gaussian_alpha(f[0], f[1], f[2], f[3], f[4], opac,
                           ix.to(feat_b.dtype)[:, :, None],
                           iy.to(feat_b.dtype)[:, :, None])   # (B, NPIX, L)
-    r = rect_b[:, None, :]
-    x16 = (ix >> 4)[:, :, None]
-    y16 = (iy >> 4)[:, :, None]
-    in_rect = ((x16 >= (r & 0xFF)) & (x16 < ((r >> 16) & 0xFF))
-               & (y16 >= ((r >> 8) & 0xFF)) & (y16 < ((r >> 24) & 0xFF)))
-    tested = in_rect & slot_ok[:, None, :]
+    if rect_mask:
+        r = rect_b[:, None, :]
+        x16 = (ix >> 4)[:, :, None]
+        y16 = (iy >> 4)[:, :, None]
+        in_rect = ((x16 >= (r & 0xFF)) & (x16 < ((r >> 16) & 0xFF))
+                   & (y16 >= ((r >> 8) & 0xFF)) & (y16 < ((r >> 24) & 0xFF)))
+        tested = in_rect & slot_ok[:, None, :]
+    else:
+        tested = slot_ok[:, None, :].expand(abar.shape)
     return torch.where(tested, abar, torch.zeros_like(abar)), tested
 
 
-def _composite_tiles(feat_b, rect_b, slot_ok, tl, grid_x):
+def _composite_tiles(feat_b, rect_b, slot_ok, tl, grid_x, stop=True,
+                     rect_mask=True, linear_t=False):
     """Plain composite of a batch of B tiles with L slots each (arguments
-    as ``_tile_alpha``).
+    as ``_tile_alpha``; the switches as ``composite_fwd_plain``'s).
 
-    Returns (img (B, 6, NPIX), T_final (B, NPIX), stop (B, NPIX) int64,
+    Returns (img (B, 6, NPIX), T_final (B, NPIX), stop_idx (B, NPIX) int64,
     first_cross (B, NPIX) int64 with L meaning never crossed).
     """
-    abar, _ = _tile_alpha(feat_b, rect_b, slot_ok, tl, grid_x)
-    w, T_final, valid, crossed_incl = _order_terms(abar, dim=2)
+    abar, _ = _tile_alpha(feat_b, rect_b, slot_ok, tl, grid_x, rect_mask)
+    w, T_final, valid, crossed_incl = _order_terms(abar, dim=2, stop=stop,
+                                                   linear_t=linear_t)
     z = feat_b[9]
     cols = torch.stack([feat_b[6], feat_b[7], feat_b[8], z,
                         torch.ones_like(z), z * z], dim=-1)  # (B, L, 6)
     img = torch.einsum("bpl,blc->bcp", w, cols)
     L = abar.shape[2]
     rank = torch.arange(1, L + 1, device=feat_b.device)
-    stop = (valid * rank).amax(dim=2)
+    stop_idx = (valid * rank).amax(dim=2)
     first_cross = L - (crossed_incl > 0).sum(dim=2)
-    return img, T_final, stop, first_cross
+    return img, T_final, stop_idx, first_cross
 
 
 def composite_fwd_plain(feat: torch.Tensor, rect: torch.Tensor,
                         starts: torch.Tensor, counts: torch.Tensor,
-                        grid_x: int, grid_y: int):
+                        grid_x: int, grid_y: int, *, stop: bool = True,
+                        rect_mask: bool = True, linear_t: bool = False):
     """Plain PyTorch forward on the binned records, tile batch by tile
     batch, with the log-space cumsum of ``ops/oracle.py``.
-    Returns (out (8, Hp, Wp), keff (T,) int32)."""
+    Returns (out (8, Hp, Wp), keff (T,) int32).
+
+    The switches, each off in one variant of the kernel ablation
+    (``ops/raster_ablate.py``): ``stop`` the T < 1e-4 stop, ``rect_mask``
+    the 16 px rect mask; ``linear_t`` carries T as a running product."""
     dev = feat.device
     out = torch.zeros(N_OUT, grid_y * BIN, grid_x * BIN, dtype=feat.dtype,
                       device=dev)
@@ -263,10 +274,11 @@ def composite_fwd_plain(feat: torch.Tensor, rect: torch.Tensor,
     tiles_out = _tile_views(out, grid_x, grid_y)
     for tiles in _tile_batches(counts):
         tl, slot_ok, idx = _batch_inputs(starts, counts, tiles, dev)
-        img, T_final, stop, first_cross = _composite_tiles(
-            feat[:, idx], rect[idx], slot_ok, tl, grid_x)
-        vals = torch.cat([img, T_final[:, None], stop[:, None].to(img.dtype)],
-                         dim=1)
+        img, T_final, stop_idx, first_cross = _composite_tiles(
+            feat[:, idx], rect[idx], slot_ok, tl, grid_x, stop, rect_mask,
+            linear_t)
+        vals = torch.cat([img, T_final[:, None],
+                          stop_idx[:, None].to(img.dtype)], dim=1)
         ty = torch.div(tl, grid_x, rounding_mode="floor")
         tiles_out[ty, tl % grid_x] = vals.view(-1, N_OUT, BIN, BIN)
         n_chunks = -torch.div(-counts[tl], CHUNK, rounding_mode="floor")
@@ -306,9 +318,12 @@ def composite_bwd_plain(feat: torch.Tensor, rect: torch.Tensor,
 
 def composite_pair_counts(feat: torch.Tensor, rect: torch.Tensor,
                           starts: torch.Tensor, counts: torch.Tensor,
-                          grid_x: int) -> dict[str, int]:
+                          grid_x: int, *, stop: bool = True,
+                          rect_mask: bool = True,
+                          linear_t: bool = False) -> dict[str, int]:
     """The (instance, pixel) pairs that need float work in the compositing
-    of these records, by kind, for the kernels' operation bound:
+    of these records (under ``composite_fwd_plain``'s switches), by kind,
+    for the kernels' operation bound:
 
       blended  composited into the pixel (alpha, transmittance test, blend);
       stopping the pair at which a pixel stops (alpha and the test only);
@@ -323,8 +338,9 @@ def composite_pair_counts(feat: torch.Tensor, rect: torch.Tensor,
             tl, slot_ok, idx = _batch_inputs(starts, counts, tiles,
                                              feat.device)
             abar, tested = _tile_alpha(feat[:, idx], rect[idx], slot_ok, tl,
-                                       grid_x)
-            _, _, valid, crossed_incl = _order_terms(abar, dim=2)
+                                       grid_x, rect_mask)
+            _, _, valid, crossed_incl = _order_terms(abar, dim=2, stop=stop,
+                                                     linear_t=linear_t)
             tot["blended"] += int(valid.sum())
             tot["stopping"] += int((crossed_incl[..., -1] > 0).sum())
             tot["cut"] += int((tested & (crossed_incl == 0)
@@ -338,8 +354,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNEL_SOURCES = {"composite_fwd": "composite_fwd.cu",
-                  "composite_bwd": "composite_bwd.cu"}
+                  "composite_bwd": "composite_bwd.cu",
+                  "composite_fwd_ablate": "composite_fwd_ablate.cu"}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict = {}          # symbol -> bound ctypes function
 
 
 def _nvcc() -> str:
@@ -392,20 +410,24 @@ def build_kernels() -> dict[str, str]:
     return reports
 
 
-def _load(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_kernels()
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
+def kernel_fn(lib_name: str, symbol: str, n_ptr: int):
+    """The C entry point ``symbol`` of library ``lib_name`` (built first if
+    missing): ``n_ptr`` pointers, then M, grid_x, num_tiles and the
+    stream."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        lib = _LIBS.get(lib_name)
+        if lib is None:
+            path = _lib_path(lib_name)
+            if not path.exists():
+                build_kernels()
+            lib = _LIBS[lib_name] = ctypes.CDLL(str(path))
+        fn = getattr(lib, symbol)
         fn.restype = ctypes.c_int
-        n_ptr = 6 if name == "composite_fwd" else 8
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
-        _LIBS[name] = lib
-    return lib
+        _FNS[symbol] = fn
+    return fn
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -433,26 +455,36 @@ def _launch_inputs(feat, rect, starts, counts, grid_x, grid_y):
     return dev, m, nt
 
 
-def composite_fwd(feat: torch.Tensor, rect: torch.Tensor,
-                  starts: torch.Tensor, counts: torch.Tensor,
-                  grid_x: int, grid_y: int):
-    """Forward compositing: (out (8, Hp, Wp), keff (T,) int32)."""
-    if not feat.is_cuda:
-        return composite_fwd_plain(feat, rect, starts, counts, grid_x, grid_y)
+def launch_fwd(fn, feat: torch.Tensor, rect: torch.Tensor,
+               starts: torch.Tensor, counts: torch.Tensor, grid_x: int,
+               grid_y: int):
+    """Launch a forward-shaped kernel (K1 or an ablation variant) on CUDA
+    tensors: (out (8, Hp, Wp), keff (T,) int32). Raises if the launch
+    fails."""
     dev, m, nt = _launch_inputs(feat, rect, starts, counts, grid_x, grid_y)
     hp, wp = grid_y * BIN, grid_x * BIN
     out = torch.empty(N_OUT, hp, wp, dtype=torch.float32, device=dev)
     keff = torch.empty(nt, dtype=torch.int32, device=dev)
-    fn = _load("composite_fwd").composite_fwd
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(feat.data_ptr(), rect.data_ptr(), starts.data_ptr(),
                  counts.data_ptr(), out.data_ptr(), keff.data_ptr(),
                  m, grid_x, nt, stream)
     if err != 0:
-        raise RuntimeError(f"composite_fwd launch failed: CUDA error {err}")
-    LAUNCHES["composite_fwd"] += 1
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
     return out, keff
+
+
+def composite_fwd(feat: torch.Tensor, rect: torch.Tensor,
+                  starts: torch.Tensor, counts: torch.Tensor,
+                  grid_x: int, grid_y: int):
+    """Forward compositing: (out (8, Hp, Wp), keff (T,) int32)."""
+    if not feat.is_cuda:
+        return composite_fwd_plain(feat, rect, starts, counts, grid_x, grid_y)
+    res = launch_fwd(kernel_fn("composite_fwd", "composite_fwd", 6), feat,
+                     rect, starts, counts, grid_x, grid_y)
+    LAUNCHES["composite_fwd"] += 1
+    return res
 
 
 def composite_bwd(feat: torch.Tensor, rect: torch.Tensor,
@@ -469,7 +501,7 @@ def composite_bwd(feat: torch.Tensor, rect: torch.Tensor,
     _check(out, "out", torch.float32, img_shape, dev)
     _check(gout, "gout", torch.float32, img_shape, dev)
     dfeat = torch.empty(N_FIELD, m, dtype=torch.float32, device=dev)
-    fn = _load("composite_bwd").composite_bwd
+    fn = kernel_fn("composite_bwd", "composite_bwd", 8)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(feat.data_ptr(), rect.data_ptr(), starts.data_ptr(),

@@ -1,16 +1,19 @@
-"""Training orchestrator, progressive stage (port of
-``freesurgs_tpu/train/loop.py``).
+"""Training orchestrator (port of ``freesurgs_tpu/train/loop.py``).
 
  1. frame 0: initialize the Gaussian field from a masked back-projection of
     the monocular depth prior, then first_frame_mapping_iters mapping
     iterations on frame 0;
- 2. frames t > 0: constant-velocity pose init -> tracking (with the epipolar
-    rigidity mask from frames t-2 / t-1) -> mapping on {random keyframe, t}
-    for train frames; an unmapped test frame gets one render to keep the
-    depth cache (the next frame's flow loss) alive.
+ 2. frames t > 0: constant-velocity pose init -> tracking (GN flow-PnP init,
+    then Adam, with the epipolar rigidity mask from frames t-2 / t-1) ->
+    mapping on {random keyframe, t} for train frames; an unmapped test frame
+    gets one render to keep the depth cache (the next frame's flow loss and
+    GN solve) alive;
+ 3. global refinement: single-view mapping iterations over random train
+    frames in chunks, with periodic checkpoints and validation;
+ 4. validation: test-view PSNR / SSIM / LPIPS and sim(3)-aligned ATE / RPE.
 
-The global stage, validation, pose BA, checkpoints and panels wait for a
-later slice (ROADMAP.md, Queue 1).
+Pose BA, panels and the viewer wait for a later slice (ROADMAP.md,
+Queue 1) and raise when asked for.
 """
 
 from __future__ import annotations
@@ -22,12 +25,17 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..convert import FIELD_KEYS
 from ..core.camera import Camera
+from ..eval.image_metrics import psnr, rgb_evaluation
+from ..eval.pose_metrics import evaluate_subsequences
+from ..io.checkpoint import (load_checkpoint_meta, restore_checkpoint,
+                             save_checkpoint)
 from ..models import pose as posemod
 from ..models.gaussians import GaussianField, from_rgbd, grow_capacity
 from ..models.pose import PoseTable, identity_poses
 from ..ops.render import render
-from .optim import adam_init
+from .optim import AdamState, adam_init
 from .steps import MappingState, TrainConfig, check_supported, \
     mapping_chunk, tracking_loop
 
@@ -43,21 +51,36 @@ def create_random_mask(num_pixels: int, frac: float, seed: int = 0):
 
 @dataclasses.dataclass
 class Trainer:
-    """Holds the training state and drives the progressive stage.
+    """Holds the training state and drives the stages.
 
     ``seq`` is any object with the VideoSequence interface: colors
     (T, 3, H, W), flows_fw (T-1, 2, H, W), monodeps (T, H, W), cam,
-    i_train / i_test (numpy arrays or tensors).
+    i_train / i_test (numpy arrays or tensors), and for the pose metrics of
+    ``validation`` gt_poses ({name: (N, 4, 4)}) and boundaries.
     """
 
     seq: Any
     cfg: TrainConfig = TrainConfig()
     sh_degree_max: int = 3
+    global_chunk: int = 100               # global iterations per chunk
     init_mask_frac: float = 0.1
     capacity: int | None = None
     seed: int = 6666
     log_fn: Any = print
+    checkpoint_dir: str | None = None     # periodic global-stage saves
+    checkpoint_every: int = 5000
+    viewer: Any = None                    # ROADMAP Queue 1 item 10
     pose_init: str = "const_velocity"
+    cache_test_frames: bool = True        # render an unmapped test frame
+                                          # into the caches (False: leave
+                                          # them empty, the reference's
+                                          # behaviour)
+    pose_ba_every: int = 0                # ROADMAP Queue 1 item 3
+    metrics_logger: Any = None            # utils/logging.MetricsLogger:
+                                          # history rows go to
+                                          # metrics.jsonl at the log cadence
+    panel_fn: Any = None                  # ROADMAP Queue 1 item 10
+    validation_every: int = 5000          # mid-global test-view eval; 0 off
     max_capacity: int = 589_824
     device: Any = "cuda"
 
@@ -65,7 +88,15 @@ class Trainer:
         if self.pose_init != "const_velocity":
             raise NotImplementedError(
                 "pose_init='pnp' (pnp_pose_init) is ROADMAP Queue 1 item 6")
-        check_supported(self.cfg, tracking=True)
+        if self.pose_ba_every:
+            raise NotImplementedError(
+                "pose_ba_every > 0 (global-stage pose BA, "
+                "eval/pose_refine.py) is ROADMAP Queue 1 item 3")
+        if self.panel_fn is not None or self.viewer is not None:
+            raise NotImplementedError(
+                "panels and the viewer (utils/image.py, viz/) are ROADMAP "
+                "Queue 1 item 10")
+        check_supported(self.cfg)
         dev = torch.device(self.device)
         seq = self.seq
         self.cam: Camera = seq.cam
@@ -108,6 +139,13 @@ class Trainer:
             generator=gen, pred_depths=pred_depths, pred_colors=pred_colors)
         self.keyframes: list[int] = []
         self.history: list[dict] = []
+        self._history_flushed = 0
+        # One continuing stream for the global stage's frame draws, so that
+        # chunked global_run calls do not replay one sequence; the counter
+        # of global iterations done carries across calls (and checkpoints)
+        # so that the cadences see the total.
+        self._global_rng = np.random.default_rng(self.seed + 1)
+        self._global_done = 0
 
     @property
     def field(self) -> GaussianField:
@@ -127,15 +165,31 @@ class Trainer:
             return
         new_cap = min(-(-int(cap * 2.0) // 4096) * 4096, self.max_capacity)
         self.log_fn(f"growing capacity {cap} -> {new_cap} (active {n_act})")
-        field = grow_capacity(self.field, new_cap)
+        self._resize_capacity(new_cap)
+
+    def _resize_capacity(self, new_cap: int):
+        """Re-shape the field and both Adam moments to ``new_cap`` slots:
+        new slots are empty (zeros, identity quats), a shrink drops the
+        tail."""
+        cap = self.field.capacity
+        if new_cap == cap:
+            return
+        if new_cap > cap:
+            field = grow_capacity(self.field, new_cap)
+
+            def fit(x):
+                return torch.cat([x, x.new_zeros((new_cap - cap,)
+                                                 + tuple(x.shape[1:]))])
+        else:
+            def fit(x):
+                return x[:new_cap]
+            f = self.field
+            field = f.replace(**{k: fit(getattr(f, k)) for k in FIELD_KEYS
+                                 if k != "scene_radius"})
         opt = self.state.opt
-
-        def pad(x):
-            return torch.cat([x, x.new_zeros((new_cap - cap,)
-                                             + tuple(x.shape[1:]))])
-
-        opt = dataclasses.replace(opt, mu={k: pad(v) for k, v in opt.mu.items()},
-                                  nu={k: pad(v) for k, v in opt.nu.items()})
+        opt = dataclasses.replace(
+            opt, mu={k: fit(v) for k, v in opt.mu.items()},
+            nu={k: fit(v) for k, v in opt.nu.items()})
         self.state = dataclasses.replace(self.state, field=field, opt=opt)
 
     def _update_sh_degree(self):
@@ -161,6 +215,15 @@ class Trainer:
             self.keyframes, self.cam, self.cfg, two_views=two_views,
             sh_degree=self.active_sh_degree, densify_enabled=True)
         return aux
+
+    def _flush_history(self):
+        """Stream the unflushed history rows to metrics.jsonl (no-op without
+        a metrics_logger); called at the log cadence."""
+        if self.metrics_logger is None:
+            return
+        for row in self.history[self._history_flushed:]:
+            self.metrics_logger.log(row)
+        self._history_flushed = len(self.history)
 
     def track_frame(self, t: int):
         if t > 1:
@@ -188,9 +251,9 @@ class Trainer:
             if t > 0:
                 metrics = self.track_frame(t)
                 overflow.append(metrics["overflow"])
-            if t not in i_train:
+            if t not in i_train and self.cache_test_frames:
                 # an unmapped (test) frame: render it into the caches so
-                # the next frame's flow loss has a depth to reproject
+                # the next frame's flow loss and GN solve have a depth
                 out = self.render_frame(t)
                 overflow.append(out["overflow"])
                 with torch.no_grad():
@@ -215,8 +278,9 @@ class Trainer:
                 metrics["opacity_resets"] = aux["opacity_resets"]
                 self._maybe_grow()
                 self._report_nonfinite(aux, f"frame {t}")
-            metrics["overflow"] = torch.stack(
-                [o.to(torch.float32) for o in overflow]).max()
+            if overflow:
+                metrics["overflow"] = torch.stack(
+                    [o.to(torch.float32) for o in overflow]).max()
             if self.colors.is_cuda:
                 torch.cuda.synchronize(self.colors.device)
             metrics["seconds"] = time.time() - t_frame
@@ -227,6 +291,59 @@ class Trainer:
                             + " ".join(f"{k}={float(v):.4g}"
                                        for k, v in metrics.items())
                             + f" ({time.time() - t0:.1f}s)")
+                self._flush_history()
+        self._flush_history()
+
+    def global_run(self, iters: int | None = None):
+        """``iters`` single-view mapping iterations over random train frames
+        (cfg.global_iters when None), in chunks of ``global_chunk``. The
+        cadences (checkpoints, validation, logs) count the total over all
+        calls, which the history rows record as ``iter``."""
+        iters = iters if iters is not None else self.cfg.global_iters
+        i_train = np.asarray(self.seq.i_train, np.int64)
+        rng = self._global_rng
+        with torch.no_grad():
+            w2c_all = self.poses.all_w2c()
+        done = 0
+        t0 = time.time()
+        while done < iters:
+            self._update_sh_degree()
+            n = min(self.global_chunk, iters - done)
+            ts = [int(t) for t in rng.choice(i_train, size=n)]
+            self.state, aux = mapping_chunk(
+                self.state, self.colors, self.monodeps, w2c_all, ts, [],
+                self.cam, self.cfg, two_views=False,
+                sh_degree=self.active_sh_degree, densify_enabled=True)
+            done += n
+            self._maybe_grow()
+            self._global_done += n
+            total = self._global_done
+            if self.checkpoint_dir and total % self.checkpoint_every < n:
+                self.save(f"{self.checkpoint_dir}/ckpt_{total:07d}")
+            if total % 1000 < n:
+                terms = aux["loss_terms"]
+                dt = {k: int(v) for k, v in aux["densify_totals"].items()
+                      if float(v) > 0}
+                self.log_fn(
+                    f"[global {total}] loss={float(aux['loss']):.4f}"
+                    f" rgb={float(terms[0]):.4f} pear={float(terms[1]):.4f}"
+                    f" lp={float(terms[2]):.4f}"
+                    f" active={int(aux['num_active'])}"
+                    + (f" densify={dt}" if dt else "")
+                    + f" ({time.time() - t0:.1f}s)")
+                self._report_nonfinite(aux, f"global {total}")
+            self.history.append({"stage": "global", "iter": total,
+                                 "loss": float(aux["loss"]),
+                                 "num_active": int(aux["num_active"]),
+                                 "overflow": float(aux["overflow_max"])})
+            if self.validation_every and total % self.validation_every < n:
+                val = self.validation()
+                self.history.append({"stage": "global_val", "iter": total,
+                                     **{k: v for k, v in val.items()
+                                        if isinstance(v, (int, float))}})
+            if total % 1000 < n:
+                self._flush_history()
+        self._flush_history()
 
     def _report_nonfinite(self, aux, where: str):
         if float(aux["nonfinite_grads"]) <= 0:
@@ -238,6 +355,7 @@ class Trainer:
                     f"first_iter={int(aux['first_nonfinite_iter'])} "
                     f"by_group={groups}")
 
+    # --------------------------------------------------------- evaluation
     def render_frame(self, t: int):
         f = self.field
         with torch.no_grad():
@@ -245,3 +363,132 @@ class Trainer:
                           f.sh, self.poses.w2c(t), self.cam, active=f.active,
                           sh_degree=self.active_sh_degree,
                           max_instances=self.cfg.instance_cap)
+
+    def _render_stack(self, frames):
+        """Clamped renders and ground truths of ``frames`` as (N, 3, H, W)
+        numpy stacks, and the largest overflow of those renders."""
+        preds, gts, overflow = [], [], 0.0
+        for t in frames:
+            out = self.render_frame(t)
+            overflow = max(overflow, float(out["overflow"]))
+            preds.append(torch.clamp(out["render"], 0, 1).cpu().numpy())
+            gts.append(self.colors[t].cpu().numpy())
+        return np.stack(preds), np.stack(gts), overflow
+
+    def validation(self, include_train: bool = False) -> dict:
+        """Test-view PSNR / SSIM / LPIPS (with ``lpips_backend``) and pose
+        metrics when the sequence has gt_poses. ``include_train`` adds
+        psnr_train over every 8th train view (map quality apart from pose
+        error). ``overflow`` is the largest of these renders' (not in the
+        JAX package, which does not check it here)."""
+        metrics: dict = {}
+        test = [int(i) for i in np.asarray(self.seq.i_test)]
+        overflow = 0.0
+        if test:
+            preds, gts, overflow = self._render_stack(test)
+            metrics.update(rgb_evaluation(gts, preds,
+                                          device=self.colors.device))
+        if include_train:
+            train = [int(i) for i in np.asarray(self.seq.i_train)][::8]
+            preds, gts, ov = self._render_stack(train)
+            metrics["psnr_train"] = psnr(gts, preds)
+            overflow = max(overflow, ov)
+        metrics["overflow"] = overflow
+        if getattr(self.seq, "gt_poses", None):
+            with torch.no_grad():
+                pred_w2c = self.poses.all_w2c().cpu().numpy()
+            metrics.update(evaluate_subsequences(
+                pred_w2c, self.seq.gt_poses, self.seq.boundaries))
+        self.log_fn("validation: " + " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in metrics.items()
+            if isinstance(v, (float, str))))
+        return metrics
+
+    # ------------------------------------------------------- persistence
+    def save(self, path: str):
+        save_checkpoint(path, self._ckpt_tree(self.capture()),
+                        self.state.iteration, meta=self._shape_meta())
+
+    def capture(self) -> dict:
+        return {"state": self.state, "poses": self.poses,
+                "keyframes": list(self.keyframes),
+                "active_sh_degree": self.active_sh_degree}
+
+    @staticmethod
+    def _ckpt_tree(cap) -> dict:
+        """The checkpoint's tree of tensors and plain values (what
+        ``torch.load(weights_only=True)`` reads back). The prediction caches,
+        the bulk of a full-res checkpoint, are stored bf16, as they live."""
+        st = cap["state"]
+        f = st.field
+        return {
+            "state": {
+                "field": {**{k: getattr(f, k) for k in FIELD_KEYS},
+                          "max_sh_degree": f.max_sh_degree},
+                "opt": {"mu": st.opt.mu, "nu": st.opt.nu,
+                        "count": st.opt.count},
+                "iteration": st.iteration,
+                "generator": st.generator.get_state(),
+                "pred_depths": st.pred_depths.to(torch.bfloat16),
+                "pred_colors": st.pred_colors.to(torch.bfloat16)},
+            "poses": {"quats": cap["poses"].quats,
+                      "trans": cap["poses"].trans},
+            "keyframes": cap["keyframes"],
+            "active_sh_degree": cap["active_sh_degree"]}
+
+    def _shape_meta(self) -> dict:
+        return {"capacity": self.field.capacity,
+                "n_keyframes": len(self.keyframes),
+                "sh_rest_k": int(self.field.sh_rest.shape[1]),
+                "num_frames": self.num_frames,
+                "max_instances": int(self.cfg.max_instances or 0),
+                "global_done": self._global_done}
+
+    def restore(self, path: str):
+        """Restore a checkpoint, also into a freshly built Trainer whose
+        capacity or keyframe count differ from save time: the sidecar's
+        shapes re-shape this Trainer first, and every restored tensor must
+        then match the shape it replaces."""
+        meta = load_checkpoint_meta(path)
+        if meta is not None:
+            if meta["num_frames"] != self.num_frames:
+                raise ValueError(
+                    f"checkpoint has {meta['num_frames']} frames, the "
+                    f"sequence {self.num_frames}")
+            if meta["sh_rest_k"] != self.field.sh_rest.shape[1]:
+                raise ValueError("sh_degree differs between the checkpoint "
+                                 "and this Trainer")
+            self._resize_capacity(meta["capacity"])
+            self._global_done = int(meta.get("global_done", 0))
+            if meta.get("max_instances"):
+                self.cfg = self.cfg._replace(
+                    max_instances=meta["max_instances"])
+        tree, _ = restore_checkpoint(path, map_location="cpu")
+        template = self._ckpt_tree(self.capture())
+
+        def put(new, old, name):
+            if torch.is_tensor(old):
+                if tuple(new.shape) != tuple(old.shape):
+                    raise ValueError(f"checkpoint {name} has shape "
+                                     f"{tuple(new.shape)}, expected "
+                                     f"{tuple(old.shape)}")
+                return new.to(device=old.device, dtype=old.dtype)
+            if isinstance(old, dict):
+                return {k: put(new[k], v, f"{name}.{k}")
+                        for k, v in old.items()}
+            return new
+
+        st = put(tree["state"], template["state"], "state")
+        gen = torch.Generator()
+        gen.set_state(tree["state"]["generator"])
+        self.state = MappingState(
+            field=GaussianField(**st["field"]),
+            opt=AdamState(mu=st["opt"]["mu"], nu=st["opt"]["nu"],
+                          count=int(st["opt"]["count"])),
+            iteration=int(st["iteration"]), generator=gen,
+            pred_depths=st["pred_depths"], pred_colors=st["pred_colors"])
+        self.poses = PoseTable(**put(tree["poses"], template["poses"],
+                                     "poses"))
+        self.keyframes = [int(k) for k in tree["keyframes"]]
+        self.active_sh_degree = int(tree["active_sh_degree"])

@@ -83,11 +83,10 @@ def flow_projection_loss(prev_depth, prev_w2c, cur_w2c, gt_flow_fw,
     and the current (differentiable) pose; masked mean L1 against the
     precomputed forward flow over valid pixels x 2 components.
 
-    The back-projection runs in f32 whatever the cache's dtype (the JAX
-    package back-projects a bf16 cache in bf16, whose pixel grid is coarser
-    than a pixel past x = 256)."""
+    The back-projection runs in the cache's own dtype, as in the JAX
+    package: a bf16 cache gets a bf16 pixel grid, coarser than a pixel past
+    x = 256 (kept for parity; ROADMAP Queue 3)."""
     H, W = cam.height, cam.width
-    prev_depth = prev_depth.float()
     depth_mask = prev_depth > 0
     if rigid_mask is not None:
         depth_mask = depth_mask & (rigid_mask > 0)

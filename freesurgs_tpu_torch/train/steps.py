@@ -28,6 +28,7 @@ from ..ops.render import DEFAULT_MAX_INSTANCES, render
 from . import losses
 from .densify import (DensifyConfig, add_render_stats, densify_and_prune,
                       reset_opacity, split_noise)
+from .flow_pnp import flow_pnp_refine
 from .optim import (AdamState, adam_init, adam_update, apply_updates,
                     expon_lr, tracking_lr)
 
@@ -91,7 +92,7 @@ class TrainConfig(NamedTuple):
                 "sh_rest": c(self.feature_lr / 20.0)}
 
 
-def check_supported(cfg: TrainConfig, *, tracking: bool = False) -> None:
+def check_supported(cfg: TrainConfig) -> None:
     """Raise for the features that wait for a later slice (ROADMAP.md,
     Queue 1) instead of running something else quietly."""
     if cfg.impl not in (None, "raster"):
@@ -99,11 +100,6 @@ def check_supported(cfg: TrainConfig, *, tracking: bool = False) -> None:
             f"impl={cfg.impl!r}: the port renders only through its "
             "compositing kernels (impl=None or 'raster'); the dense oracle "
             "is a test reference (ops/oracle.py)")
-    if tracking and cfg.tracking_gn_iters > 0:
-        raise NotImplementedError(
-            "tracking_gn_iters > 0 needs the GN flow-PnP init "
-            "(train/flow_pnp.py), ROADMAP Queue 1 item 1; set "
-            "tracking_gn_iters=0 for the reference tracking semantics")
     if cfg.rebin_every > 1 or cfg.rebin_tracking_every > 1:
         raise NotImplementedError(
             "BinState reuse (rebin_every > 1) is ROADMAP Queue 1 item 2")
@@ -127,8 +123,19 @@ def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
                   prev_w2c, flow_fw_prev, rigid_mask, cam: Camera,
                   cfg: TrainConfig, sh_degree: int = 0):
     """Optimize one frame's (quat, trans) for cfg.tracking_iters Adam steps
-    with the Gaussians frozen. Returns (quat, trans, metrics)."""
-    check_supported(cfg, tracking=True)
+    with the Gaussians frozen. Returns (quat, trans, metrics).
+
+    With cfg.tracking_gn_iters > 0 the pose is first refined by the
+    Gauss-Newton flow-PnP solve (train/flow_pnp.py) on the same inputs as
+    the flow loss; a frame whose previous depth cache is empty carries zero
+    GN weight and keeps its init."""
+    check_supported(cfg)
+    gn_diag = None
+    if cfg.tracking_gn_iters > 0:
+        quat0, trans0, gn_diag = flow_pnp_refine(
+            quat0, trans0, prev_depth, prev_w2c, flow_fw_prev, cam,
+            rigid_mask=rigid_mask, iters=cfg.tracking_gn_iters,
+            huber_px=cfg.tracking_gn_huber_px)
     pose = {"q": quat0.detach().clone(), "t": trans0.detach().clone()}
     opt = adam_init(pose)
     dev = quat0.device
@@ -164,6 +171,12 @@ def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
     metrics = {"nonfinite_grads": nonfinite, "overflow": overflow_max}
     if last is not None:
         metrics.update(loss=last[0], rgb_loss=last[1], flow_loss=last[2])
+    if gn_diag is not None:
+        # final Huber-weighted mean residual (px) and the effective point
+        # weight; a weight below flow_pnp_refine's min_weight (64) means the
+        # degenerate-frame guard kept the init
+        metrics["gn_resid_px"] = gn_diag[0]
+        metrics["gn_weight"] = gn_diag[1]
     return pose["q"], pose["t"], metrics
 
 
@@ -216,7 +229,8 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
     n_densify = n_reset = 0
     overflow_max = zero
     inst_max = zero
-    first_nf = None
+    n_it = len(cur_ts)
+    first_nf = torch.tensor(n_it, device=dev)    # n_it: none
     loss = terms = None
 
     for it_idx, cur_t in enumerate(cur_ts):
@@ -267,14 +281,8 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
         nf_iter = sum(nf.values())
         for k in _GROUPS:
             nf_total[k] = nf_total[k] + nf[k]
-        if first_nf is None:
-            first_nf = torch.where(nf_iter > 0,
-                                   torch.tensor(float(it_idx), device=dev),
-                                   torch.tensor(-1.0, device=dev))
-        else:
-            first_nf = torch.where((first_nf < 0) & (nf_iter > 0),
-                                   torch.tensor(float(it_idx), device=dev),
-                                   first_nf)
+        first_nf = torch.where((first_nf == n_it) & (nf_iter > 0),
+                               torch.tensor(it_idx, device=dev), first_nf)
         pgrads = {k: _finite(g) for k, g in pgrads.items()}
         probe_grad = _finite(probe_grad)
 
@@ -320,7 +328,7 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
            "nonfinite_grads": nonfinite,
            "loss_terms": terms,            # rgb / pearson / local-pearson
            "nonfinite_by_group": nf_total,
-           "first_nonfinite_iter": first_nf,   # -1: none
+           "first_nonfinite_iter": first_nf,   # chunk length: none
            "iteration": iteration,
            "num_instances_max": inst_max,
            "densify_totals": dens_total,

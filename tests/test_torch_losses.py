@@ -123,6 +123,44 @@ def test_flow_projection_loss():
                                rtol=1e-4, atol=1e-5)
 
 
+def test_flow_projection_loss_bf16_cache_wide():
+    """The tracker hands the loss its bf16 depth cache. JAX back-projects it
+    in bf16 (a pixel grid coarser than one pixel past x = 256), and so must
+    the port: at 640 px wide an f32 back-projection moves the loss by
+    about 2%. Same tolerances as above (bf16 rounding agrees op for op);
+    the gradients' atol is 1e-4 of entries up to ~500."""
+    rng = np.random.default_rng(8)
+    H, W = 48, 640
+    kw = dict(height=H, width=W, fx=0.8 * W, fy=0.8 * W, cx=W / 2,
+              cy=H / 2)
+    depth = rng.uniform(1.0, 2.0, (H, W)).astype(np.float32)
+    flow = rng.normal(0, 1.0, (2, H, W)).astype(np.float32)
+    prev = np.asarray(jbuild(jnp.asarray([1.0, 0.0, 0.0, 0.0]),
+                             jnp.asarray([0.0, 0.0, 0.0])))
+    q = np.asarray([0.9999, 0.002, -0.003, 0.001], np.float32)
+    t = np.asarray([0.01, -0.005, 0.01], np.float32)
+
+    def jf(q, t):
+        return jl.flow_projection_loss(
+            jnp.asarray(depth, jnp.bfloat16), jnp.asarray(prev),
+            jbuild(q, t), jnp.asarray(flow), JCam(**kw))
+
+    jv, jg = jax.value_and_grad(jf, argnums=(0, 1))(jnp.asarray(q),
+                                                    jnp.asarray(t))
+    tq, tt = T(q, True), T(t, True)
+    tv = tl.flow_projection_loss(T(depth).to(torch.bfloat16), T(prev),
+                                 tbuild(tq, tt), T(flow), TCam(**kw))
+    tv.backward()
+    np.testing.assert_allclose(float(jv), tv.item(), rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(jg[0]), tq.grad.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(jg[1]), tt.grad.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    f32 = tl.flow_projection_loss(T(depth), T(prev), tbuild(T(q), T(t)),
+                                  T(flow), TCam(**kw))
+    assert abs(float(f32) / float(jv) - 1.0) > 0.01   # the case is live
+
+
 def test_scale_shift_invariant_loss():
     rng = np.random.default_rng(5)
     pred = rng.uniform(0.2, 2.0, (2, 48, 40)).astype(np.float32)

@@ -109,12 +109,6 @@ def test_tracking_loop(scene):
     assert float(tm["overflow"]) == 0          # reported on this path too
 
 
-def test_tracking_needs_flow_pnp_port():
-    """The default tracking_gn_iters=8 waits for train/flow_pnp.py."""
-    with pytest.raises(NotImplementedError, match="flow_pnp"):
-        ts.check_supported(ts.TrainConfig(), tracking=True)
-
-
 @pytest.mark.parametrize("impl", [None, "raster", "oracle"])
 def test_impl_renders_only_through_the_kernels(impl):
     """TrainConfig.impl is kept for field parity; anything but the kernels'
@@ -122,9 +116,9 @@ def test_impl_renders_only_through_the_kernels(impl):
     cfg = ts.TrainConfig(tracking_gn_iters=0, impl=impl)
     if impl == "oracle":
         with pytest.raises(NotImplementedError, match="oracle"):
-            ts.check_supported(cfg, tracking=True)
+            ts.check_supported(cfg)
     else:
-        ts.check_supported(cfg, tracking=True)
+        ts.check_supported(cfg)
 
 
 @pytest.mark.parametrize("two_views", [False, True])
@@ -176,6 +170,46 @@ def test_mapping_chunk(scene, two_views):
     np.testing.assert_allclose(
         np.asarray(jst.pred_depths, np.float32),
         tst.pred_depths.float().numpy(), atol=2e-2)
+
+
+@pytest.mark.parametrize("poisoned", [False, True])
+def test_first_nonfinite_iter_sentinel(scene, poisoned):
+    """aux["first_nonfinite_iter"] as JAX reports it: the chunk length when
+    no iteration saw a non-finite gradient, else the first such iteration
+    (a NaN colour on one visible Gaussian poisons iteration 0 on)."""
+    sc, jf, tf = scene
+    n_it = 3
+    cfg_kw = dict(w_local_pearson=0.0, densify_interval=1000)
+    sh_dc = np.array(jf.sh_dc)
+    if poisoned:
+        sh_dc[0] = np.nan
+    jf = jf.replace(sh_dc=jnp.asarray(sh_dc))
+    tf = tf.replace(sh_dc=torch.tensor(sh_dc))
+    colors, monodeps = np.asarray(sc.colors), np.asarray(sc.monodeps)
+    w2c = np.asarray(sc.gt_w2c)
+    jstate = js.MappingState(
+        field=jf, opt=jadam_init(jf.param_dict()), iteration=jnp.int32(0),
+        key=jax.random.PRNGKey(0),
+        pred_depths=jnp.zeros((2, 64, 80), jnp.bfloat16),
+        pred_colors=jnp.zeros((2, 3, 64, 80), jnp.bfloat16))
+    _, jaux = js.mapping_chunk(
+        jstate, jnp.asarray(colors), jnp.asarray(monodeps), jnp.asarray(w2c),
+        jnp.full((n_it,), 1, jnp.int32), jnp.zeros((2,), jnp.int32),
+        jnp.int32(1), sc.cam, js.TrainConfig(impl="oracle", **cfg_kw),
+        False, 1)
+    tstate = ts.MappingState(
+        field=tf, opt=tadam_init(tf.param_dict()), iteration=0,
+        generator=torch.Generator().manual_seed(0),
+        pred_depths=torch.zeros(2, 64, 80, dtype=torch.bfloat16),
+        pred_colors=torch.zeros(2, 3, 64, 80, dtype=torch.bfloat16))
+    _, taux = ts.mapping_chunk(
+        tstate, torch.tensor(colors), torch.tensor(monodeps),
+        torch.tensor(w2c), [1] * n_it, [0], tcam(sc.cam),
+        ts.TrainConfig(**cfg_kw), False, 1)
+    want = 0 if poisoned else n_it
+    assert int(jaux["first_nonfinite_iter"]) == want
+    assert int(taux["first_nonfinite_iter"]) == want
+    assert (float(taux["nonfinite_grads"]) > 0) == poisoned
 
 
 class JSeq:
