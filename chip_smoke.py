@@ -9,21 +9,27 @@ Phases, each printing one JSON line with its seconds:
   2. build   — nvcc builds every kernel library from csrc/ (ptxas registers,
      shared memory and spills per kernel, each ablation variant included);
   3. parity  — K1 and K2 against their plain PyTorch versions on bench.py's
-     scene (100k Gaussians, SH3, 1280x1024, seed 0);
+     scene (100k Gaussians, SH3, 1280x1024, seed 0), and K2 launched twice
+     on the same inputs (bitwise equal);
   4. timing  — CUDA-event times of K1 / K2 and their plain versions, with
-     the least time the card could take (bound_ms);
-  5. ablate  — K3, the ablation family of K1 (ops/raster_ablate.py): the
-     timing run over every variant on the bench scene, its launch counts
-     read just after; then each variant against its plain version
-     (baseline and noshared against K1 bit for bit);
+     the pairs the records need and the least time the card could take
+     (bound_ms);
+  5. ablate  — K3, the ablation family of K1's first design
+     (ops/raster_ablate.py): the timing run over every variant on the bench
+     scene, its launch counts read just after; then each variant against
+     its plain version (baseline and noshared bit for bit against each
+     other); then K1 and K3 baseline timed in turns;
   6. slice   — the training job at 1280x1024 from 131,072 initial
      Gaussians, depth cut through TrainConfig: progressive SLAM with the
      default GN tracking (densify, the opacity reset at its last mapping
      iteration, SH degree 3), 40 global iterations with two validations
      and two periodic checkpoints, then save, restore into a fresh Trainer
      and 10 more global iterations there. Launch counters reset just before
-     it and read just after;
-  7. kernels — one JSON line with every kernel's numbers;
+     it and read just after. Frame 0's records at the end of the global
+     stage are kept, and after the run K1 / K2 get phases 3 and 4 again on
+     them (layout "slice_frame0": the main path's own shapes);
+  7. kernels — one JSON line with every kernel's numbers (K1 / K2 from the
+     slice_frame0 layout, K3 from the bench scene);
 then, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, when there is no CUDA device or
@@ -51,12 +57,15 @@ PEAK_F32_PER_S = 67e12
 # csrc/: "cut" = dy, the power (9), its test, exp, raw = o exp and its test
 # (14); "stopping" adds min(0.99, raw), T = exp(logT) and the T (1 - alpha)
 # test (19); "blended" adds, in the forward, w, the 6-channel blend and
-# logT += log1p(-alpha) (34), and in the backward cg, the running sum,
-# dalpha, the chain to the 10 fields and logT (78). Pairs whose rect misses
-# the pixel (an integer test) or that come after the pixel's stop count 0,
-# as do K2's per-record warp reductions: the bound stays a lower bound.
+# logT += log1p(-alpha) (34), and in the backward's replay min(0.99, raw),
+# w, cg, the running sum, dalpha, the per-pixel terms of the chain to the
+# 10 fields and T *= 1 - alpha (58). The replay stops at each pixel's stop
+# index, so no stopping pair reaches the backward's float work. Pairs whose
+# rect misses the pixel (an integer test) or that come after the pixel's
+# stop count 0, as do K2's per-record terms and warp reductions: the bound
+# stays a lower bound.
 FWD_OPS = {"cut": 14, "stopping": 19, "blended": 34}
-BWD_OPS = {"cut": 14, "stopping": 19, "blended": 78}
+BWD_OPS = {"cut": 14, "stopping": 0, "blended": 58}
 
 
 def ablate_ops(mech) -> dict[str, int]:
@@ -125,23 +134,28 @@ def fwd_bytes(m: int, nt: int, gx: int, gy: int, bin_px: int) -> int:
     return 4 * (10 * m + m + 3 * nt) + 8 * gy * bin_px * gx * bin_px * 4
 
 
-def parity_and_timing(dev, bench, results):
+def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
+                  n: int) -> dict:
+    """K1 and K2 on one layout of binned records: each against its plain
+    version under the gates, K2 twice on the same inputs (bitwise equal),
+    then CUDA-event times of both and of their plain versions, the pairs
+    the records need and the bound. Prints the layout's ``parity`` and
+    ``timing`` lines; returns {kernel name: its numbers}."""
     import torch
+    from freesurgs_tpu_torch.ops import raster_ablate as ra
     from freesurgs_tpu_torch.ops import raster_cuda as rc
     from freesurgs_tpu_torch.ops.raster_ablate import cuda_ms
 
     t0 = time.time()
-    cam, cfg, feat, rect, bins, n = bench
     gx, gy = cfg.grid_x, cfg.grid_y
     starts, counts, gidx = bins.tile_start, bins.tile_count, bins.gather_idx
     m = feat.shape[1]
-    check(int(bins.overflow) == 0, f"bench scene overflowed: {bins.overflow}")
+    check(int(bins.overflow) == 0, f"{layout} overflowed: {bins.overflow}")
 
     out_k, keff_k = rc.composite_fwd(feat, rect, starts, counts, gx, gy)
     torch.cuda.synchronize()
     out_p, keff_p = rc.composite_fwd_plain(feat, rect, starts, counts, gx, gy)
     torch.cuda.synchronize()
-    H, W = cam.height, cam.width
     ch_err, stop_diff, fails = fwd_gates(out_k, out_p, H, W, "K1")
     keff_diff = int((keff_k != keff_p).sum())
     fwd_err = max(ch_err)
@@ -154,7 +168,13 @@ def parity_and_timing(dev, bench, results):
     gout[:, :, W:] = 0.0
     dfeat_k = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k,
                                gout, gx, gy)
+    dfeat_k2 = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k,
+                                gout, gx, gy)
     torch.cuda.synchronize()
+    deterministic = torch.equal(dfeat_k, dfeat_k2)
+    if not deterministic:
+        fails.append("K2: two launches on the same inputs differ")
+    del dfeat_k2
     dfeat_p = rc.composite_bwd_plain(feat, rect, starts, counts, gout, gx, gy)
     torch.cuda.synchronize()
     inst_err = float((dfeat_k - dfeat_p).abs().max())
@@ -171,15 +191,18 @@ def parity_and_timing(dev, bench, results):
         field_err.append(float((gk[:, f] - gp[:, f]).abs().max()) / scale)
     if not max(field_err) <= BWD_FIELD_TOL:
         fails.append(f"K2: normalized per-Gaussian gradient err {field_err}")
-    phase("parity", t0, instances=m, tiles=gx * gy,
+    phase("parity", t0, layout=layout, instances=m, tiles=gx * gy,
           fwd_max_abs_err_per_channel=ch_err, fwd_stop_index_diff=stop_diff,
           keff_diff=keff_diff, bwd_max_abs_err_per_instance=inst_err,
           bwd_max_abs_per_instance=inst_scale,
           bwd_normalized_err_per_field=field_err,
+          bwd_bitwise_deterministic=deterministic,
           tolerances={"fwd_channel": FWD_CHANNEL_TOL,
                       "fwd_stop_frac": FWD_STOP_DIFF_FRAC,
-                      "bwd_field": BWD_FIELD_TOL})
-    check(not fails, "; ".join(fails))
+                      "bwd_field": BWD_FIELD_TOL,
+                      "bwd_repeat": "bitwise equal"})
+    check(not fails, f"{layout}: " + "; ".join(fails))
+    del dfeat_k, dfeat_p, gk, gp, out_p
 
     t0 = time.time()
     ms_fwd = cuda_ms(lambda: rc.composite_fwd(feat, rect, starts, counts,
@@ -187,6 +210,9 @@ def parity_and_timing(dev, bench, results):
     ms_bwd = cuda_ms(lambda: rc.composite_bwd(feat, rect, starts, counts,
                                               keff_k, out_k, gout, gx, gy),
                      iters=20)
+    # K1's first design (K3 baseline) on the same records, for comparison
+    ms_first = cuda_ms(lambda: ra.composite_fwd_ablate(
+        "baseline", feat, rect, starts, counts, gx, gy), iters=20)
     plain_fwd = cuda_ms(lambda: rc.composite_fwd_plain(
         feat, rect, starts, counts, gx, gy), iters=3, warmup=1)
     plain_bwd = cuda_ms(lambda: rc.composite_bwd_plain(
@@ -202,37 +228,32 @@ def parity_and_timing(dev, bench, results):
     img = 8 * gy * rc.BIN * gx * rc.BIN * 4
     f_bytes = fwd_bytes(m, nt, gx, gy, rc.BIN)
     bwd_bytes = 4 * (2 * rc.N_FIELD * m + m + 3 * nt) + 2 * img * 7 // 8
-    kernels = []
-    for name, src, rep, ms, pms, ops, nbytes, err in (
-            ("composite_fwd", "freesurgs_tpu_torch/csrc/composite_fwd.cu",
-             "freesurgs_tpu/ops/raster_pallas.py:307", ms_fwd, plain_fwd,
-             fwd_ops, f_bytes, fwd_err),
-            ("composite_bwd", "freesurgs_tpu_torch/csrc/composite_bwd.cu",
-             "freesurgs_tpu/ops/raster_pallas.py:415", ms_bwd, plain_bwd,
-             bwd_ops, bwd_bytes, inst_err)):
+    rows = {}
+    for name, ms, pms, ops, nbytes, err in (
+            ("composite_fwd", ms_fwd, plain_fwd, fwd_ops, f_bytes, fwd_err),
+            ("composite_bwd", ms_bwd, plain_bwd, bwd_ops, bwd_bytes,
+             inst_err)):
         b_ms, b_by = bound(ops, nbytes)
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    results["kernels"] = kernels
-    phase("timing", t0, instances=m, keff_sum=int(keff_k.sum()),
+        rows[name] = {"ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                      "bound_by": b_by, "max_abs_err": err}
+    phase("timing", t0, layout=layout, instances=m, keff_sum=int(keff_k.sum()),
           pairs=pairs, pixel_slots_to_keff=slots, fwd_ops=fwd_ops,
           bwd_ops=bwd_ops, fwd_bytes=f_bytes, bwd_bytes=bwd_bytes,
           fwd_ms=ms_fwd, bwd_ms=ms_bwd, fwd_plain_ms=plain_fwd,
-          bwd_plain_ms=plain_bwd,
-          fwd_bound_ms=kernels[0]["bound_ms"],
-          bwd_bound_ms=kernels[1]["bound_ms"],
-          fwd_share_of_bound=kernels[0]["bound_ms"] / ms_fwd,
-          bwd_share_of_bound=kernels[1]["bound_ms"] / ms_bwd,
+          bwd_plain_ms=plain_bwd, fwd_first_design_ms=ms_first,
+          fwd_bound_ms=rows["composite_fwd"]["bound_ms"],
+          bwd_bound_ms=rows["composite_bwd"]["bound_ms"],
+          fwd_share_of_bound=rows["composite_fwd"]["bound_ms"] / ms_fwd,
+          bwd_share_of_bound=rows["composite_bwd"]["bound_ms"] / ms_bwd,
           library_ms=None,
           library_note="no single PyTorch call computes this function")
-    return out_k, keff_k
+    return rows
 
 
-def run_ablate(bench, k1_out, k1_keff, results):
+def run_ablate(bench, results):
     """K3's path (the ablation timing run, counted), then each variant
-    against its plain version (not counted)."""
+    against its plain version (not counted), then the forward of today
+    (K1) and the first design (K3 ``baseline``) timed in turns."""
     import torch
     from freesurgs_tpu_torch.ops import raster_ablate as ra
     from freesurgs_tpu_torch.ops import raster_cuda as rc
@@ -251,7 +272,7 @@ def run_ablate(bench, k1_out, k1_keff, results):
 
     m, nt = feat.shape[1], gx * gy
     nbytes = fwd_bytes(m, nt, gx, gy, rc.BIN)
-    variants, fails = {}, []
+    variants, fails, outs = {}, [], {}
     for name, mech in ra.VARIANTS.items():
         out_k, keff_k = ra.composite_fwd_ablate(name, *args)
         torch.cuda.synchronize()
@@ -264,11 +285,7 @@ def run_ablate(bench, k1_out, k1_keff, results):
                "stop_index_diff": stop_diff,
                "keff_diff": int((keff_k != keff_p).sum())}
         if name in ("baseline", "noshared"):
-            same = torch.equal(out_k, k1_out) and torch.equal(keff_k,
-                                                              k1_keff)
-            row["equal_to_k1_bitwise"] = same
-            if not same:
-                fails.append(f"K3 {name} differs from K1")
+            outs[name] = (out_k, keff_k)
         pairs = ra.ablate_pair_counts(name, feat, rect, bins.tile_start,
                                       bins.tile_count, gx)
         ops = float(sum(ablate_ops(mech)[k] * v for k, v in pairs.items()))
@@ -285,10 +302,25 @@ def run_ablate(bench, k1_out, k1_keff, results):
             "launches": launches[name], "max_abs_err": max(ch_err),
             "ms": ms[name], "plain_ms": row["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
+    (ob, kb), (on, kn) = outs["baseline"], outs["noshared"]
+    same = torch.equal(ob, on) and torch.equal(kb, kn)
+    if not same:
+        fails.append("K3 baseline and noshared differ")
+    # the forward's two designs on one card, in turns
+    k1_out, k1_keff = rc.composite_fwd(*args)
+    turns = {"k1_ms": [], "baseline_ms": []}
+    for _ in range(2):
+        turns["k1_ms"].append(cuda_ms(lambda: rc.composite_fwd(*args),
+                                      iters=20))
+        turns["baseline_ms"].append(cuda_ms(
+            lambda: ra.composite_fwd_ablate("baseline", *args), iters=20))
     phase("ablate", t0, instances=m, variants=variants,
+          baseline_noshared_bitwise_equal=same,
+          k1_vs_baseline=dict(turns, k1_equal_to_baseline_bitwise=(
+              torch.equal(k1_out, ob) and torch.equal(k1_keff, kb))),
           tolerances={"fwd_channel": FWD_CHANNEL_TOL,
                       "fwd_stop_frac": FWD_STOP_DIFF_FRAC,
-                      "baseline_noshared": "bitwise equal to K1"},
+                      "baseline_noshared": "bitwise equal"},
           library_note="no single PyTorch call computes these functions")
     check(not fails, "; ".join(fails))
     check(all(v > 0 for v in launches.values()),
@@ -311,6 +343,7 @@ def run_slice(dev, results, ckpt_root: Path):
     from freesurgs_tpu_torch.data.synthetic import SceneSequence, make_scene
     from freesurgs_tpu_torch.ops import raster_cuda as rc
     from freesurgs_tpu_torch.ops.raster_ablate import cuda_ms
+    from freesurgs_tpu_torch.ops.render import render_records
     from freesurgs_tpu_torch.train.flow_pnp import flow_pnp_refine
     from freesurgs_tpu_torch.train.loop import Trainer
     from freesurgs_tpu_torch.train.steps import TrainConfig
@@ -367,6 +400,15 @@ def run_slice(dev, results, ckpt_root: Path):
     out_end = tr.render_frame(0)
     renders += 1
     psnr_end = psnr(out_end["render"], seq.colors[0])
+    # the records of that render (binning only, no kernel launch), for
+    # checking and timing K1 / K2 at the path's own shapes after the run
+    fld = tr.field
+    frame0 = render_records(fld.means, fld.quats, fld.log_scales,
+                            fld.logit_opacity, fld.sh, tr.poses.w2c(0),
+                            tr.cam, active=fld.active,
+                            sh_degree=tr.active_sh_degree,
+                            max_instances=tr.cfg.instance_cap)
+    n_frame0 = fld.capacity
     t1 = time.time()
     val = tr.validation()
     torch.cuda.synchronize()
@@ -531,9 +573,19 @@ def run_slice(dev, results, ckpt_root: Path):
     check(densify_events >= 1, "densify never ran")
     check(resets >= 1, "the opacity reset never ran")
     check(tr.active_sh_degree == 3, "SH degree 3 not reached")
-    for k in results["kernels"]:
-        if k["name"] in launches:
-            k["launches"] = launches[k["name"]]
+
+    # K1 / K2 on frame 0's render at the end of the global stage
+    rows = kernel_checks(dev, "slice_frame0", tr.cam.height, tr.cam.width,
+                         *frame0, n_frame0)
+    results["kernels"][:0] = [{
+        "name": name, "route": "cuda",
+        "source": f"freesurgs_tpu_torch/csrc/{name}.cu", "replaces": rep,
+        "launches": launches[name], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None}
+        for (name, r), rep in zip(rows.items(), (
+            "freesurgs_tpu/ops/raster_pallas.py:307",
+            "freesurgs_tpu/ops/raster_pallas.py:415"))]
 
 
 def ptxas_report(reports: dict[str, str]) -> dict:
@@ -595,9 +647,10 @@ def main() -> int:
     cam, params = bench_scene(dev)
     bench = (cam,) + records_for(cam, params)
     results: dict = {}
-    k1_out, k1_keff = parity_and_timing(dev, bench, results)
-    run_ablate(bench, k1_out, k1_keff, results)
-    del bench, params, k1_out, k1_keff
+    kernel_checks(dev, "bench_scene", cam.height, cam.width, *bench[1:])
+    results["kernels"] = []
+    run_ablate(bench, results)
+    del bench, params
     with tempfile.TemporaryDirectory() as ckpt_root:
         run_slice(dev, results, Path(ckpt_root))
     print(json.dumps({"kernels": results["kernels"]}), flush=True)

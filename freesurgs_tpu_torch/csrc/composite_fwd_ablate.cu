@@ -1,11 +1,11 @@
-// Ablation family of the tile-compositing forward kernel (composite_fwd.cu)
-// for Hopper (sm_90a).
+// Ablation family of the first design of the tile-compositing forward
+// kernel (composite_fwd.cu) for Hopper (sm_90a).
 //
 // Replaces scripts/kernel_overhead.py:make_fwd, the TPU's structural copies
 // of its forward kernel with one mechanism removed each, timed side by side
 // to attribute the kernel's time. The TPU variants remove TPU mechanisms
 // (the DMA double buffer, the carry's lane reductions, the keff watermark);
-// these remove composite_fwd.cu's own, one template switch each:
+// these remove the first design's own, one template switch each:
 //
 //   STOP    the per-pixel T < 1e-4 stop test, the skip of stopped pixels
 //           and the block vote that ends the walk (off: every slot of the
@@ -17,19 +17,63 @@
 //   LOGT    log-space transmittance, T = exp(logT), logT += log1p(-alpha)
 //           (off: T *= 1 - alpha)
 //
-// With every switch on the code is composite_fwd.cu's, expression for
-// expression, so "baseline" (and "noshared", whose function is the same)
-// must equal it bit for bit; ops/raster_ablate.py holds each variant to
-// its plain version. What bounds each variant is what bounds the forward:
-// the f32 operations of the pairs that variant's function needs
-// (chip_smoke.py counts them from the data); the bytes are the forward's.
-// The family is a measuring tool, written as simply as the forward.
+// With every switch on the code is the first design of composite_fwd.cu,
+// expression for expression: its thread -> pixel map and its cooperative
+// loads are kept below, so "baseline" times that design beside the
+// forward of today, and "noshared", whose function is the same, must
+// equal "baseline" bit for bit; ops/raster_ablate.py holds each
+// variant to its plain version. What bounds each variant is what bounds
+// the forward: the f32 operations of the pairs that variant's function
+// needs (chip_smoke.py counts them from the data); the bytes are the
+// forward's. The family is a measuring tool, written as simply as the
+// forward was.
 
 #include "composite_common.cuh"
 
 using namespace fsgs;
 
 namespace {
+
+// The first design's thread -> pixel map: warp w owns rows w, w+8, w+16,
+// w+24 of the tile and lane l owns column l, so each warp reads and writes
+// whole 128 B rows (and spans both 16 px columns).
+struct PixelSet {
+  float fx;            // pixel x (image coords)
+  int x16;             // its 16 px tile column
+  float fy[PPT];
+  int y16[PPT];
+  int gidx[PPT];       // offset of the pixel in one (Hp, Wp) plane
+};
+
+__device__ inline PixelSet pixel_set(int tile, int grid_x) {
+  PixelSet ps;
+  const int lane = threadIdx.x % 32;
+  const int row0 = threadIdx.x / 32;
+  const int x = (tile % grid_x) * BIN + lane;
+  const int wp = grid_x * BIN;
+  ps.fx = (float)x;
+  ps.x16 = x >> 4;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int y = (tile / grid_x) * BIN + row0 + NWARPS * k;
+    ps.fy[k] = (float)y;
+    ps.y16[k] = y >> 4;
+    ps.gidx[k] = y * wp + x;
+  }
+  return ps;
+}
+
+// The first design's staging: a cooperative, coalesced load of slots
+// [base, base + CHUNK) by all threads.
+__device__ inline void load_records(Records& r, const float* __restrict__ feat,
+                                    const int* __restrict__ rect, int M,
+                                    int base) {
+  for (int i = threadIdx.x; i < NF * CHUNK; i += NTHREADS) {
+    const int f = i / CHUNK, j = i % CHUNK;
+    r.f[f][j] = feat[(size_t)f * M + base + j];
+  }
+  for (int j = threadIdx.x; j < CHUNK; j += NTHREADS) r.rect[j] = rect[base + j];
+}
 
 // Where a chunk's records are read: shared memory after a staged load, or
 // global memory directly.
@@ -62,7 +106,7 @@ __device__ inline bool in_x(const S& s, int j, int x16) {
   return x16 >= (rc & 0xFF) && x16 < ((rc >> 16) & 0xFF);
 }
 
-// record_alpha of composite_common.cuh, with the y rect test switchable.
+// The first design's alpha of one pair, with the y rect test switchable.
 template <bool RECT, class S>
 __device__ inline bool alpha_of(const S& s, int j, float dx, float dy, int y16,
                                 float& alpha) {

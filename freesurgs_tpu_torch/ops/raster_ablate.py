@@ -6,15 +6,16 @@ its time (port of ``scripts/kernel_overhead.py``).
 builds bench.py's scene (100k Gaussians, SH3, 1280x1024, seed 0) on the
 card, bins it as ``render`` does, and prints the CUDA-event time of every
 variant and its difference from ``baseline``. Each variant is a copy of
-the forward kernel (``csrc/composite_fwd.cu``) with one mechanism switched
-off (``csrc/composite_fwd_ablate.cu``):
+the first design of the forward kernel (``csrc/composite_fwd.cu``, K1: a
+thread -> pixel map that spans all four 16 px quadrants in every warp,
+cooperative chunk loads) with one mechanism switched off (``csrc/composite_fwd_ablate.cu``):
 
-  baseline  nothing: the forward, bit for bit
+  baseline  nothing: the first design, which computes K1's function
   nostop    the per-pixel T < 1e-4 stop and the block vote: every slot of
             the run composites
   norect    the 16 px rect tests: the rect mask passes all
-  noshared  shared-memory staging: records read from global memory (the
-            forward's function, bit for bit)
+  noshared  shared-memory staging: records read from global memory
+            (``baseline``'s function, bit for bit)
   linear_t  log-space transmittance: T *= 1 - alpha
   minimal   all four
 

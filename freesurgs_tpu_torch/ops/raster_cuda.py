@@ -452,6 +452,12 @@ def _launch_inputs(feat, rect, starts, counts, grid_x, grid_y):
     _check(counts, "counts", torch.int32, (nt,), dev)
     if m >= 2 ** 31 // N_FIELD:
         raise ValueError(f"instance buffer too large for int32 offsets: {m}")
+    # the kernels stage each chunk's field rows by 512 B bulk copies
+    if m % CHUNK:
+        raise ValueError(f"instance buffer {m} is not a multiple of {CHUNK}")
+    for name, t in (("feat", feat), ("rect", rect)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     return dev, m, nt
 
 

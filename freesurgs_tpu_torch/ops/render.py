@@ -26,7 +26,7 @@ from ..core.camera import Camera
 from ..core.sh import sh_to_rgb_clamped
 from ..core.transforms import transform_points
 from .projection import project_gaussians
-from .raster_cuda import RasterConfig, rasterize
+from .raster_cuda import RasterConfig, instance_records, rasterize
 
 # Instance-buffer cap used when the caller names none (the JAX package's
 # TrainConfig.max_instances_cap).
@@ -36,6 +36,38 @@ DEFAULT_MAX_INSTANCES = 3_145_728
 def raster_config(cam: Camera, max_instances: int = 0) -> RasterConfig:
     return RasterConfig(height=cam.height, width=cam.width,
                         max_instances=max_instances or DEFAULT_MAX_INSTANCES)
+
+
+def _raster_inputs(means_w, quats, log_scales, logit_opacity, sh_coeffs,
+                   w2c, cam, active, probe2d, sh_degree):
+    """Project the field for ``rasterize``: (proj, rgbz (N, 4), opacity)."""
+    mean_cam = transform_points(w2c, means_w)
+    opacity = torch.sigmoid(logit_opacity)
+    proj = project_gaussians(mean_cam, torch.exp(log_scales), quats, cam,
+                             active=active)
+    if probe2d is not None:
+        proj = proj._replace(mean2d=proj.mean2d + probe2d)
+
+    # SH -> RGB against the origin; rsqrt(max(|x|^2, eps^2)) keeps the
+    # gradient of exactly-zero (unused) means at 0 instead of 0 * inf.
+    n2 = torch.sum(means_w * means_w, dim=-1, keepdim=True)
+    dirs = means_w * torch.rsqrt(torch.clamp_min(n2, 1e-16))
+    rgb = sh_to_rgb_clamped(sh_degree, sh_coeffs, dirs)
+    return proj, torch.cat([rgb, proj.depth[:, None]], dim=1), opacity
+
+
+def render_records(means3d, quats, log_scales, logit_opacity, sh_coeffs,
+                   w2c, cam: Camera, *, active=None, sh_degree: int = 0,
+                   max_instances: int = 0):
+    """The binned records ``render`` would hand the compositing kernels for
+    this view, without autograd: (RasterConfig, feat (10, M), rect (M,),
+    TileBins). For checking and timing the kernels on a real layout."""
+    with torch.no_grad():
+        proj, rgbz, opacity = _raster_inputs(
+            means3d, quats, log_scales, logit_opacity, sh_coeffs, w2c, cam,
+            active, None, sh_degree)
+        cfg = raster_config(cam, max_instances)
+        return (cfg,) + instance_records(proj, rgbz, opacity, cfg)
 
 
 def render(means3d: torch.Tensor, quats: torch.Tensor,
@@ -68,26 +100,12 @@ def render(means3d: torch.Tensor, quats: torch.Tensor,
     def gs(x):
         return x if gs_grad else x.detach()
 
-    means_w = gs(means3d)
-    mean_cam = transform_points(w2c_used, means_w)
-    opacity = torch.sigmoid(gs(logit_opacity))
-    scales = torch.exp(gs(log_scales))
-
-    proj = project_gaussians(mean_cam, scales, gs(quats), cam, active=active)
-    if probe2d is not None:
-        proj = proj._replace(mean2d=proj.mean2d + probe2d)
-
-    # SH -> RGB against the origin; rsqrt(max(|x|^2, eps^2)) keeps the
-    # gradient of exactly-zero (unused) means at 0 instead of 0 * inf.
-    n2 = torch.sum(means_w * means_w, dim=-1, keepdim=True)
-    dirs = means_w * torch.rsqrt(torch.clamp_min(n2, 1e-16))
-    rgb = sh_to_rgb_clamped(sh_degree, gs(sh_coeffs), dirs)
-
-    z = proj.depth
+    proj, rgbz, opacity = _raster_inputs(
+        gs(means3d), gs(quats), gs(log_scales), gs(logit_opacity),
+        gs(sh_coeffs), w2c_used, cam, active, probe2d, sh_degree)
     bg6 = torch.cat([bg, torch.ones(3, dtype=bg.dtype, device=bg.device)])
 
-    cfg = raster_config(cam, max_instances)
-    out = rasterize(proj, torch.cat([rgb, z[:, None]], dim=1), opacity, cfg)
+    out = rasterize(proj, rgbz, opacity, raster_config(cam, max_instances))
     final_T = out["final_T"]
     image6 = out["image"] + final_T[None] * bg6[:, None, None]
 

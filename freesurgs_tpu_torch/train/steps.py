@@ -142,7 +142,8 @@ def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
     sh = field.sh
     nonfinite = torch.zeros((), device=dev)
     overflow_max = torch.zeros((), device=dev)
-    last = None
+    zero = torch.zeros((), device=dev)
+    last = (zero, zero, zero)      # JAX's fori_loop carry: zeros at 0 iters
     for i in range(cfg.tracking_iters):
         q = pose["q"].requires_grad_(True)
         t = pose["t"].requires_grad_(True)
@@ -168,9 +169,8 @@ def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
         upd, opt = adam_update(grads, opt, lr)
         pose = apply_updates({"q": q.detach(), "t": t.detach()}, upd)
         last = (loss.detach(), rgb.detach(), flow.detach())
-    metrics = {"nonfinite_grads": nonfinite, "overflow": overflow_max}
-    if last is not None:
-        metrics.update(loss=last[0], rgb_loss=last[1], flow_loss=last[2])
+    metrics = {"loss": last[0], "rgb_loss": last[1], "flow_loss": last[2],
+               "nonfinite_grads": nonfinite, "overflow": overflow_max}
     if gn_diag is not None:
         # final Huber-weighted mean residual (px) and the effective point
         # weight; a weight below flow_pnp_refine's min_weight (64) means the

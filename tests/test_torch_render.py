@@ -134,3 +134,25 @@ def test_make_scene():
         np.testing.assert_allclose(np.asarray(getattr(j, k)),
                                    getattr(t, k).numpy(), atol=tol,
                                    err_msg=k)
+
+
+def test_render_records_are_what_render_composites():
+    """``render_records`` bins the view exactly as ``render`` does: the
+    forward compositing of its records is ``render``'s image, bit for
+    bit."""
+    from freesurgs_tpu_torch.ops.raster_cuda import composite_fwd
+    from freesurgs_tpu_torch.ops.render import render_records
+    params, active, _ = field(3, 30)
+    ts = [torch.tensor(x) for x in params]
+    cam = TCam(**CAMKW)
+    out = trender(*ts, cam, active=torch.tensor(active), sh_degree=3)
+    cfg, feat, rect, bins = render_records(*ts, cam,
+                                           active=torch.tensor(active),
+                                           sh_degree=3)
+    assert int(bins.overflow) == 0 and feat.shape == (10, rect.shape[0])
+    img, _ = composite_fwd(feat, rect, bins.tile_start, bins.tile_count,
+                           cfg.grid_x, cfg.grid_y)
+    T = img[6, :H, :W]
+    torch.testing.assert_close(img[0:3, :H, :W] + T, out["render"],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(T, out["final_T"], rtol=0, atol=0)

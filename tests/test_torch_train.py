@@ -109,6 +109,30 @@ def test_tracking_loop(scene):
     assert float(tm["overflow"]) == 0          # reported on this path too
 
 
+def test_tracking_loop_zero_iters_metrics(scene):
+    """With tracking_iters=0 the metrics carry JAX's keys, with JAX's
+    zeros, and the pose stays at its init."""
+    sc, jf, tf = scene
+    kw = dict(tracking_iters=0, tracking_gn_iters=0)
+    q0 = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
+    t0 = np.asarray([0.01, -0.02, 0.0], np.float32)
+    inputs = (np.asarray(sc.colors[1]), np.asarray(sc.depths[0]),
+              np.asarray(sc.gt_w2c[0]), np.asarray(sc.flows_fw[0]),
+              np.ones((64, 80), np.float32))
+    jq, jt, jm = js.tracking_loop(
+        jf, jnp.asarray(q0), jnp.asarray(t0), *map(jnp.asarray, inputs),
+        sc.cam, js.TrainConfig(impl="oracle", **kw), sh_degree=1)
+    tq, tt, tm = ts.tracking_loop(
+        tf, torch.tensor(q0), torch.tensor(t0),
+        *(torch.tensor(x) for x in inputs), tcam(sc.cam),
+        ts.TrainConfig(**kw), sh_degree=1)
+    assert set(jm) <= set(tm), (sorted(jm), sorted(tm))
+    for k in jm:
+        assert float(tm[k]) == float(jm[k]) == 0.0, k
+    np.testing.assert_array_equal(np.asarray(jq), tq.numpy())
+    np.testing.assert_array_equal(np.asarray(jt), tt.numpy())
+
+
 @pytest.mark.parametrize("impl", [None, "raster", "oracle"])
 def test_impl_renders_only_through_the_kernels(impl):
     """TrainConfig.impl is kept for field parity; anything but the kernels'
