@@ -28,8 +28,26 @@ Phases, each printing one JSON line with its seconds:
      it and read just after. Frame 0's records at the end of the global
      stage are kept, and after the run K1 / K2 get phases 3 and 4 again on
      them (layout "slice_frame0": the main path's own shapes);
-  7. kernels — one JSON line with every kernel's numbers (K1 / K2 from the
-     slice_frame0 layout, K3 from the bench scene);
+  7. reuse   — the same scene with the binning-layout carry
+     (rebin_every=4, rebin_tracking_every=5) and pose BA every 20 global
+     iterations (5 Adam steps a frame): progressive SLAM, then 40 global
+     iterations in two calls, a pose-BA pass ending each, and one
+     validation. Counters reset just before and read just after: launches
+     equal the renders made, binnings equal what the rebin schedule gives;
+     every refined frame's loss at its returned pose is at most its loss at
+     the pose it started from, and frame 0 and the test frame keep their
+     poses bitwise. Then, on the trained map, frame 0 on its carried layout
+     with nothing moved (bitwise the fresh render; gradients within K2's
+     gate), and after one mapping step the stale render beside a fresh one
+     (reported); and, per one-view mapping and per tracking iteration,
+     the host syncs and the wall ms (in turns) binning every render and
+     with the carry;
+  8. overlap — progressive SLAM with keyframe_policy="overlap": finite
+     losses, frame 0 fitted, launches equal the renders made, the keyframe
+     views picked;
+  9. kernels — one JSON line with every kernel's numbers (K1 / K2 from the
+     slice_frame0 layout and the slice's launches, K3 from the bench
+     scene);
 then, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, when there is no CUDA device or
@@ -337,10 +355,73 @@ def dir_bytes(path: Path) -> int:
     return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
 
 
+# The slice's depth cut (TrainConfig) and Trainer settings. The opacity
+# reset fires at iteration 50, the last progressive mapping iteration;
+# 40 global iterations (51-90) then fit the map again before a second
+# reset could fire (100).
+SLICE_CFG = dict(first_frame_mapping_iters=30, mapping_iters=10,
+                 tracking_iters=10, densify_interval=40,
+                 opacity_reset_interval=50, sh_increase_interval=10)
+SLICE_TRAINER = dict(sh_degree_max=3, init_mask_frac=0.1, global_chunk=10)
+
+
+def slice_sequence(dev):
+    """scripts/make_fullres_dataset.py's recipe, 4 frames at 1280x1024.
+    Frame 1 is a test frame: tracked and rendered into the depth cache
+    (which frame 2's flow loss and GN solve read), not mapped."""
+    from freesurgs_tpu_torch.data.synthetic import SceneSequence, make_scene
+    n_frames = 4
+    scene = make_scene(num_frames=n_frames, n_gaussians=20000, height=1024,
+                       width=1280, seed=7, scale_range=(0.004, 0.012),
+                       device=dev)
+    seq = SceneSequence(scene, i_test=[1])
+    seq.gt_poses = {"synthetic": scene.gt_w2c.cpu().numpy()}
+    seq.boundaries = [0, n_frames]
+    return scene, seq
+
+
+def progressive_counts(cfg, seq) -> tuple[int, int, int]:
+    """Forward and backward renders, and optimizer iterations, of
+    ``progressive_run``: tracking on every frame but 0, one cache render of
+    a test frame, one view on frame 0's mapping and two on the others'."""
+    n_frames = int(seq.colors.shape[0])
+    train = set(int(t) for t in seq.i_train)
+    fwd = bwd = iters = 0
+    for t in range(n_frames):
+        if t > 0:
+            fwd += cfg.tracking_iters
+            bwd += cfg.tracking_iters
+            iters += cfg.tracking_iters
+        if t not in train:
+            fwd += 1                      # the test frame's cache render
+        elif t == 0:
+            fwd += cfg.first_frame_mapping_iters
+            bwd += cfg.first_frame_mapping_iters
+            iters += cfg.first_frame_mapping_iters
+        else:
+            fwd += 2 * cfg.mapping_iters
+            bwd += 2 * cfg.mapping_iters
+            iters += cfg.mapping_iters
+    return fwd, bwd, iters
+
+
+def carried_bins(frames, it0: int, cfg) -> int:
+    """Renders of one carried view of a mapping chunk that bin, by the
+    rebin rule: force | a new frame | k % rebin_every == 0, with force
+    true at k = 0 and after an iteration with a densify event or an
+    opacity reset (global iteration it0 + k + 1)."""
+    n, prev, force = 0, None, True
+    for k, t in enumerate(frames):
+        n += bool(force or t != prev or k % cfg.rebin_every == 0)
+        prev, it = t, it0 + k + 1
+        force = ((it % cfg.densify_interval == 0 and it < cfg.densify_until)
+                 or it % cfg.opacity_reset_interval == 0)
+    return n
+
+
 def run_slice(dev, results, ckpt_root: Path):
     import torch
     from freesurgs_tpu_torch.core.transforms import quat_to_rotmat
-    from freesurgs_tpu_torch.data.synthetic import SceneSequence, make_scene
     from freesurgs_tpu_torch.ops import raster_cuda as rc
     from freesurgs_tpu_torch.ops.raster_ablate import cuda_ms
     from freesurgs_tpu_torch.ops.render import render_records
@@ -349,26 +430,12 @@ def run_slice(dev, results, ckpt_root: Path):
     from freesurgs_tpu_torch.train.steps import TrainConfig
 
     t0 = time.time()
-    # scripts/make_fullres_dataset.py's recipe, 4 frames. Frame 1 is a test
-    # frame: tracked and rendered into the depth cache (which frame 2's
-    # flow loss and GN solve read), not mapped.
-    n_frames = 4
-    scene = make_scene(num_frames=n_frames, n_gaussians=20000, height=1024,
-                       width=1280, seed=7, scale_range=(0.004, 0.012),
-                       device=dev)
-    seq = SceneSequence(scene, i_test=[1])
-    seq.gt_poses = {"synthetic": scene.gt_w2c.cpu().numpy()}
-    seq.boundaries = [0, n_frames]
-    # The opacity reset fires at iteration 50, the last progressive mapping
-    # iteration; the 40 global iterations (51-90) then fit the map again
-    # before a second reset could fire (100).
-    cfg = TrainConfig(first_frame_mapping_iters=30, mapping_iters=10,
-                      tracking_iters=10, densify_interval=40,
-                      opacity_reset_interval=50, sh_increase_interval=10)
+    scene, seq = slice_sequence(dev)
+    n_frames = scene.colors.shape[0]
+    cfg = TrainConfig(**SLICE_CFG)
     ckpt_dir = ckpt_root / "run"
-    tkw = dict(sh_degree_max=3, init_mask_frac=0.1, device=dev,
-               global_chunk=10, validation_every=20, checkpoint_every=20,
-               checkpoint_dir=str(ckpt_dir))
+    tkw = dict(SLICE_TRAINER, device=dev, validation_every=20,
+               checkpoint_every=20, checkpoint_dir=str(ckpt_dir))
     logs = []
     tr = Trainer(seq, cfg, log_fn=logs.append, **tkw)
     torch.cuda.synchronize()
@@ -379,6 +446,7 @@ def run_slice(dev, results, ckpt_root: Path):
 
     # ---- the main path, counters reset just before it
     rc.reset_launches()
+    rc.reset_bins()
     torch.cuda.reset_peak_memory_stats()
     t_run = time.time()
     renders = 0                     # render_frame / validation calls below
@@ -443,28 +511,15 @@ def run_slice(dev, results, ckpt_root: Path):
     resumed_seconds = time.time() - t1
     seconds = time.time() - t_run
     launches = dict(rc.LAUNCHES)
+    bins = rc.BINS["build_tile_bins"]
+    peak = torch.cuda.max_memory_allocated()
     # ---- end of the main path
 
     prog = [h for h in tr.history if h["stage"] == "progressive"]
     glob = [h for h in tr.history if h["stage"] == "global"]
     vals = [h for h in tr.history if h["stage"] == "global_val"]
-    n_train = [t for t in range(n_frames) if t in set(seq.i_train.tolist())]
-    exp_fwd, exp_bwd, iters = renders, 0, 0
-    for t in range(n_frames):
-        if t > 0:
-            exp_fwd += cfg.tracking_iters
-            exp_bwd += cfg.tracking_iters
-            iters += cfg.tracking_iters
-        if t not in n_train:
-            exp_fwd += 1                  # the test frame's cache render
-        elif t == 0:
-            exp_fwd += cfg.first_frame_mapping_iters
-            exp_bwd += cfg.first_frame_mapping_iters
-            iters += cfg.first_frame_mapping_iters
-        else:
-            exp_fwd += 2 * cfg.mapping_iters
-            exp_bwd += 2 * cfg.mapping_iters
-            iters += cfg.mapping_iters
+    exp_fwd, exp_bwd, iters = progressive_counts(cfg, seq)
+    exp_fwd += renders
     global_iters = 40 + 10
     exp_fwd += global_iters + len(vals) * len(seq.i_test)
     exp_bwd += global_iters
@@ -536,11 +591,11 @@ def run_slice(dev, results, ckpt_root: Path):
           launches=launches,
           expected_launches={"composite_fwd": exp_fwd,
                              "composite_bwd": exp_bwd},
+          binnings=bins, binnings_per_render=bins / exp_fwd,
           densify_events=densify_events, opacity_resets=resets,
           sh_degree=tr.active_sh_degree,
           active_gaussians=int(tr.field.num_active),
-          max_memory_allocated=torch.cuda.max_memory_allocated(),
-          log=logs)
+          max_memory_allocated=peak, log=logs)
     check(all(math.isfinite(x) for x in losses + [psnr_end]),
           f"non-finite loss or PSNR {losses} {psnr_end}")
     check(all(math.isfinite(f[k]) for f in frames
@@ -569,6 +624,8 @@ def run_slice(dev, results, ckpt_root: Path):
           f"global counter {done_before} -> {fresh._global_done}")
     check(launches == {"composite_fwd": exp_fwd, "composite_bwd": exp_bwd},
           f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
+    # every render bins, and so does render_records
+    check(bins == exp_fwd + 1, f"binnings {bins} != {exp_fwd} renders + 1")
     check(overflow == 0, f"instance overflow {overflow}")
     check(densify_events >= 1, "densify never ran")
     check(resets >= 1, "the opacity reset never ran")
@@ -586,6 +643,370 @@ def run_slice(dev, results, ckpt_root: Path):
         for (name, r), rep in zip(rows.items(), (
             "freesurgs_tpu/ops/raster_pallas.py:307",
             "freesurgs_tpu/ops/raster_pallas.py:415"))]
+    return {"progressive_iterations_per_s": iters / prog_seconds,
+            "global_iterations_per_s_with_val_and_ckpt": 40 / global_seconds,
+            "binnings_per_render": bins / exp_fwd,
+            "max_memory_allocated": peak,
+            "validation": {k: val[k] for k in val_keys}}
+
+
+def frame_loss(tr, t: int, quat, trans) -> float:
+    """Frame t's photometric loss at a pose, as the pose-BA pass measures
+    it (unmasked rgb_loss of a forward render)."""
+    import torch
+    from freesurgs_tpu_torch.core.transforms import build_w2c
+    from freesurgs_tpu_torch.ops.render import render
+    from freesurgs_tpu_torch.train import losses
+    f = tr.field
+    with torch.no_grad():
+        out = render(f.means, f.quats, f.log_scales, f.logit_opacity, f.sh,
+                     build_w2c(quat, trans), tr.cam, active=f.active,
+                     sh_degree=tr.active_sh_degree,
+                     max_instances=tr.cfg.instance_cap, gs_grad=False)
+        return float(losses.rgb_loss(out["render"], tr.colors[t]))
+
+
+def carry_exactness(tr) -> dict:
+    """(a) of the reuse phase, on a trained Trainer: frame 0 rendered fresh
+    with a carry and again on the carried layout with the same parameters
+    (outputs bitwise equal, per-Gaussian gradients within the K2 gate:
+    index_add_ sums in a varying order); then one mapping step, and the
+    stale layout's render beside a fresh one (reported, no gate: the
+    sliver of Gaussians that grew or moved beyond their binned bins)."""
+    import torch
+    from freesurgs_tpu_torch.ops.render import render
+    from freesurgs_tpu_torch.train import losses
+    from freesurgs_tpu_torch.train.steps import mapping_chunk
+
+    names = ("means", "quats", "log_scales", "logit_opacity", "sh_dc",
+             "sh_rest")
+    f = tr.field
+    w2c0 = tr.poses.w2c(0).detach()
+
+    def rend(field, bins, rebin, grad=False):
+        p = {k: getattr(field, k).detach().requires_grad_(grad)
+             for k in names}
+        out = render(p["means"], p["quats"], p["log_scales"],
+                     p["logit_opacity"],
+                     torch.cat([p["sh_dc"], p["sh_rest"]], dim=1), w2c0,
+                     tr.cam, active=field.active,
+                     sh_degree=tr.active_sh_degree,
+                     max_instances=tr.cfg.instance_cap, bins=bins,
+                     rebin=rebin)
+        if not grad:
+            return out, None
+        loss = (losses.rgb_loss(out["render"], tr.colors[0])
+                + 0.05 * losses.pearson_depth_loss(tr.monodeps[0],
+                                                   out["render_dep"]))
+        return out, torch.autograd.grad(loss, [p[k] for k in names])
+
+    o1, g1 = rend(f, None, True, grad=True)
+    o2, g2 = rend(f, o1["bins"], False, grad=True)
+    torch.cuda.synchronize()
+    bitwise = {k: torch.equal(o1[k], o2[k])
+               for k in ("render", "render_dep", "render_sil", "final_T")}
+    grad_err = {}
+    for k, a, b in zip(names, g1, g2):
+        scale = max(float(a.abs().max()), 1e-12)
+        grad_err[k] = float((a - b).abs().max()) / scale
+    with torch.no_grad():
+        w2c_all = tr.poses.all_w2c()
+    tr.state, _ = mapping_chunk(tr.state, tr.colors, tr.monodeps, w2c_all,
+                                [0], [], tr.cam, tr.cfg, two_views=False,
+                                sh_degree=tr.active_sh_degree,
+                                densify_enabled=False)
+    with torch.no_grad():
+        stale, _ = rend(tr.field, o1["bins"], False)
+        fresh, _ = rend(tr.field, None, None)
+    diff = (stale["render"] - fresh["render"]).abs()
+    res = {"bitwise_equal": bitwise, "grad_normalized_err": grad_err,
+           "instances": int(o1["num_instances"]),
+           "after_one_step": {
+               "max_abs_diff_render": float(diff.max()),
+               "max_abs_diff_final_T": float(
+                   (stale["final_T"] - fresh["final_T"]).abs().max()),
+               "pixel_share_differing": float(
+                   (diff.amax(dim=0) > 0).to(torch.float32).mean()),
+               # beyond the rounding of a re-chunked run: the sliver
+               "pixel_share_differing_over_1e-5": float(
+                   (diff.amax(dim=0) > 1e-5).to(torch.float32).mean()),
+               "pixel_share_differing_over_1e-3": float(
+                   (diff.amax(dim=0) > 1e-3).to(torch.float32).mean()),
+               "instances_fresh": int(fresh["num_instances"])}}
+    check(all(bitwise.values()), f"reuse with nothing moved differs: {bitwise}")
+    check(max(grad_err.values()) <= BWD_FIELD_TOL,
+          f"reuse gradients differ: {grad_err}")
+    return res
+
+
+def count_syncs(fn) -> int:
+    """Host-device synchronizations while ``fn`` runs (host reads and
+    blocking host-to-device copies), counted by torch's sync debug mode."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def iteration_costs(tr, n: int = 8, every_n: int = 4) -> dict:
+    """Host syncs and wall ms per one-view mapping iteration on frame 0 and
+    per tracking (Adam) iteration, binning on every render and with the
+    layout carried (rebin every ``every_n``), over chunks of ``n``
+    iterations: the syncs first (their run warms both), then the wall
+    times in turns (every, carried, carried, every). What skipping the
+    binner takes off the host's critical path. Mapping without densify;
+    the state moves on."""
+    import torch
+    from freesurgs_tpu_torch.train.steps import mapping_chunk, tracking_loop
+
+    def mapping(cfg):
+        def fn():
+            w2c = tr.poses.all_w2c().detach()
+            tr.state, _ = mapping_chunk(
+                tr.state, tr.colors, tr.monodeps, w2c, [0] * n, [], tr.cam,
+                cfg, two_views=False, sh_degree=tr.active_sh_degree,
+                densify_enabled=False)
+        return fn
+
+    def tracking(cfg):
+        rigid = tr._rigid_mask(2)
+        prev_w2c = tr.poses.w2c(1).detach()
+        return lambda: tracking_loop(
+            tr.field, tr.poses.quats[2], tr.poses.trans[2], tr.colors[2],
+            tr.state.pred_depths[1], prev_w2c, tr.flows_fw[1], rigid, tr.cam,
+            cfg._replace(tracking_iters=n, tracking_gn_iters=0),
+            sh_degree=tr.active_sh_degree)
+
+    def wall_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return (time.time() - t) * 1e3 / n
+
+    keys = ("bin_every_render", f"rebin_every_{every_n}")
+    cfgs = (tr.cfg._replace(rebin_every=1, rebin_tracking_every=1),
+            tr.cfg._replace(rebin_every=every_n,
+                            rebin_tracking_every=every_n))
+    out = {}
+    for name, make in (("mapping_one_view", mapping),
+                       ("tracking_adam", tracking)):
+        fns = dict(zip(keys, (make(c) for c in cfgs)))
+        row = {"host_syncs": {k: count_syncs(f) / n for k, f in fns.items()},
+               "wall_ms_in_turns": {k: [] for k in keys}}
+        for k in (keys[0], keys[1], keys[1], keys[0]):
+            row["wall_ms_in_turns"][k].append(wall_ms(fns[k]))
+        out[name] = row
+    return out
+
+
+def run_reuse(dev, slice_summary: dict):
+    """The layout carry and pose BA at full width: (b) a training run with
+    rebin_every=4, rebin_tracking_every=5 and pose BA every 20 global
+    iterations (counters reset just before it, read just after), then (a)
+    carry_exactness on the trained map."""
+    import numpy as np
+    import torch
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.train.loop import Trainer
+    from freesurgs_tpu_torch.train.steps import TrainConfig
+
+    t0 = time.time()
+    _, seq = slice_sequence(dev)
+    cfg = TrainConfig(**SLICE_CFG, rebin_every=4, rebin_tracking_every=5)
+    logs = []
+    tr = Trainer(seq, cfg, log_fn=logs.append, device=dev,
+                 validation_every=0, pose_ba_every=20, pose_ba_iters=5,
+                 **SLICE_TRAINER)
+    check(int(tr.field.num_active) == 131_072, "expected 131,072 Gaussians")
+    train = [int(t) for t in seq.i_train]
+    refined = [t for t in train if t != 0]
+    pinned = [t for t in range(len(seq.colors)) if t not in refined]
+
+    # ---- this path, counters reset just before it
+    rc.reset_launches()
+    rc.reset_bins()
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.time()
+    renders = 0                     # forward-only renders made here
+    out_before = tr.render_frame(0)
+    renders += 1
+    psnr_before = psnr(out_before["render"], seq.colors[0])
+    tr.progressive_run()
+    torch.cuda.synchronize()
+    prog_seconds = time.time() - t_run
+    out_reset = tr.render_frame(0)
+    renders += 1
+    psnr_post_reset = psnr(out_reset["render"], seq.colors[0])
+    psnr_cached = psnr(tr.state.pred_colors[0].float(), seq.colors[0])
+    poses_global0 = (tr.poses.quats.clone(), tr.poses.trans.clone())
+    global_seconds, ba_checks = 0.0, []
+    for _ in range(2):              # pose BA at the end of each call
+        q0, t0_ = tr.poses.quats.clone(), tr.poses.trans.clone()
+        t1 = time.time()
+        tr.global_run(20)
+        torch.cuda.synchronize()
+        global_seconds += time.time() - t1
+        for t in refined:
+            start = frame_loss(tr, t, q0[t], t0_[t])
+            ret = frame_loss(tr, t, tr.poses.quats[t], tr.poses.trans[t])
+            ba_checks.append({"iter": tr._global_done, "frame": t,
+                              "loss_start": start, "loss_returned": ret})
+        renders += 2 * len(refined)
+    out_end = tr.render_frame(0)
+    renders += 1
+    psnr_end = psnr(out_end["render"], seq.colors[0])
+    val = tr.validation()
+    renders += len(seq.i_test)
+    torch.cuda.synchronize()
+    seconds = time.time() - t_run
+    launches = dict(rc.LAUNCHES)
+    bins = rc.BINS["build_tile_bins"]
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of this path
+
+    # what the schedule says: renders and binnings
+    exp_fwd, exp_bwd, iters = progressive_counts(cfg, seq)
+    n_ba = 2 * len(refined) * tr.pose_ba_iters
+    exp_fwd += renders + 40 + n_ba
+    exp_bwd += 40 + n_ba
+    prog = [h for h in tr.history if h["stage"] == "progressive"]
+    exp_bins = renders + n_ba
+    it = 0
+    for h in prog:
+        t = h["frame"]
+        if t > 0:                   # tracking: i % rebin_tracking_every
+            exp_bins += -(-cfg.tracking_iters // cfg.rebin_tracking_every)
+        if t not in train:
+            exp_bins += 1           # the test frame's cache render
+            continue
+        n = cfg.first_frame_mapping_iters if t == 0 else cfg.mapping_iters
+        exp_bins += carried_bins([t] * n, it, cfg)
+        if t > 0:                   # the keyframe view's own carry
+            exp_bins += carried_bins(h["keyframe_views"], it, cfg)
+        it += n
+    rng = np.random.default_rng(tr.seed + 1)    # global_run's stream
+    for _ in range(4):
+        exp_bins += carried_bins(
+            np.sort(rng.choice(np.asarray(seq.i_train), size=10)).tolist(),
+            it, cfg)
+        it += 10
+
+    ba_rows = [h for h in tr.history if h["stage"] == "pose_ba"]
+    glob = [h for h in tr.history if h["stage"] == "global"]
+    losses = ([float(h[k]) for h in prog for k in ("loss", "rgb_loss",
+                                                   "flow_loss") if k in h]
+              + [h["loss"] for h in glob] + [h["mean_loss"] for h in ba_rows]
+              + [c[k] for c in ba_checks for k in ("loss_start",
+                                                   "loss_returned")])
+    overflow = max([float(h["overflow"]) for h in prog]
+                   + [h["overflow"] for h in glob + ba_rows]
+                   + [float(o["overflow"]) for o in
+                      (out_before, out_reset, out_end)] + [val["overflow"]])
+    pinned_equal = all(
+        torch.equal(tr.poses.quats[t], poses_global0[0][t])
+        and torch.equal(tr.poses.trans[t], poses_global0[1][t])
+        for t in pinned)
+    monotone = all(c["loss_returned"] <= c["loss_start"] for c in ba_checks)
+    val_keys = ("psnr", "ssim", "lpips", "ate", "rpe_trans", "rpe_rot_deg")
+    summary = dict(
+        run_seconds=seconds, progressive_seconds=prog_seconds,
+        progressive_iterations=iters,
+        progressive_iterations_per_s=iters / prog_seconds,
+        global_seconds=global_seconds, global_iterations=40,
+        global_iterations_per_s_with_pose_ba=40 / global_seconds,
+        launches=launches,
+        expected_launches={"composite_fwd": exp_fwd,
+                           "composite_bwd": exp_bwd},
+        binnings=bins, expected_binnings=exp_bins,
+        binnings_per_render=bins / exp_fwd,
+        keyframe_views={h["frame"]: h["keyframe_views"] for h in prog
+                        if "keyframe_views" in h},
+        pose_ba_rows=ba_rows, pose_ba_checks=ba_checks,
+        pinned_poses_bitwise_equal=pinned_equal,
+        psnr_frame0_before=psnr_before,
+        psnr_frame0_after_mapping=psnr_cached,
+        psnr_frame0_post_reset=psnr_post_reset,
+        psnr_frame0_end_of_run=psnr_end,
+        validation={k: val[k] for k in val_keys},
+        overflow_max=overflow, max_memory_allocated=peak,
+        slice_same_call=slice_summary)
+    check(all(math.isfinite(x) for x in losses + [psnr_end]),
+          f"non-finite loss or PSNR {losses} {psnr_end}")
+    check(launches == {"composite_fwd": exp_fwd, "composite_bwd": exp_bwd},
+          f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
+    check(bins == exp_bins, f"binnings {bins} != the schedule's {exp_bins}")
+    check(psnr_cached > psnr_before,
+          f"frame-0 PSNR did not improve: {psnr_before} -> {psnr_cached}")
+    check(psnr_end > psnr_post_reset,
+          f"the global stage did not fit frame 0 again after the reset: "
+          f"{psnr_post_reset} -> {psnr_end}")
+    check([h["iter"] for h in ba_rows] == [20, 40],
+          f"pose-BA rows {ba_rows}")
+    check(monotone, f"a pose-BA pass made a frame worse: {ba_checks}")
+    check(pinned_equal, f"pose BA moved a pinned frame ({pinned})")
+    check(overflow == 0, f"instance overflow {overflow}")
+    summary["carry"] = carry_exactness(tr)
+    summary["per_iteration"] = iteration_costs(tr)
+    phase("reuse", t0, **summary)
+
+
+def run_overlap(dev):
+    """progressive_run with keyframe_policy="overlap" (every render bins
+    fresh): finite losses, frame 0 fitted, launches = renders."""
+    import torch
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.train.loop import Trainer
+    from freesurgs_tpu_torch.train.steps import TrainConfig
+
+    t0 = time.time()
+    _, seq = slice_sequence(dev)
+    cfg = TrainConfig(**SLICE_CFG, keyframe_policy="overlap")
+    tr = Trainer(seq, cfg, log_fn=lambda *a: None, device=dev,
+                 validation_every=0, **SLICE_TRAINER)
+    rc.reset_launches()
+    rc.reset_bins()
+    t_run = time.time()
+    out_before = tr.render_frame(0)
+    tr.progressive_run()
+    torch.cuda.synchronize()
+    seconds = time.time() - t_run
+    launches = dict(rc.LAUNCHES)
+    bins = rc.BINS["build_tile_bins"]
+
+    exp_fwd, exp_bwd, iters = progressive_counts(cfg, seq)
+    exp_fwd += 1
+    prog = [h for h in tr.history if h["stage"] == "progressive"]
+    losses = [float(h[k]) for h in prog
+              for k in ("loss", "rgb_loss", "flow_loss") if k in h]
+    psnr_before = psnr(out_before["render"], seq.colors[0])
+    psnr_cached = psnr(tr.state.pred_colors[0].float(), seq.colors[0])
+    overflow = max(float(h["overflow"]) for h in prog)
+    phase("overlap", t0, progressive_seconds=seconds,
+          progressive_iterations_per_s=iters / seconds,
+          keyframe_views={h["frame"]: h["keyframe_views"] for h in prog
+                          if "keyframe_views" in h},
+          psnr_frame0_before=psnr_before,
+          psnr_frame0_after_mapping=psnr_cached,
+          launches=launches,
+          expected_launches={"composite_fwd": exp_fwd,
+                             "composite_bwd": exp_bwd},
+          binnings=bins, overflow_max=overflow)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(psnr_cached > psnr_before,
+          f"frame-0 PSNR did not improve: {psnr_before} -> {psnr_cached}")
+    check(launches == {"composite_fwd": exp_fwd, "composite_bwd": exp_bwd},
+          f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
+    check(bins == exp_fwd, f"binnings {bins} != renders {exp_fwd}")
+    check(overflow == 0, f"instance overflow {overflow}")
 
 
 def ptxas_report(reports: dict[str, str]) -> dict:
@@ -652,7 +1073,9 @@ def main() -> int:
     run_ablate(bench, results)
     del bench, params
     with tempfile.TemporaryDirectory() as ckpt_root:
-        run_slice(dev, results, Path(ckpt_root))
+        slice_summary = run_slice(dev, results, Path(ckpt_root))
+    run_reuse(dev, slice_summary)
+    run_overlap(dev)
     print(json.dumps({"kernels": results["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

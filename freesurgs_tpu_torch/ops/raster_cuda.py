@@ -37,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from .binning import CHUNK, build_tile_bins, derive_bin_rect
+from .binning import CHUNK, TileBins, build_tile_bins, derive_bin_rect
 from .oracle import ALPHA_MIN, _order_terms, gaussian_alpha
 from .projection import TILE, ProjectedGaussians, to_int32
 
@@ -48,11 +48,18 @@ NPIX = BIN * BIN
 
 # Kernel launches since the last reset, counted where each kernel launches.
 LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0}
+# Binner runs since the last reset, counted where the binner runs
+# (``_bin_state``): a render that reuses a carried layout does not count.
+BINS = {"build_tile_bins": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def reset_bins() -> None:
+    BINS["build_tile_bins"] = 0
 
 
 class RasterConfig(NamedTuple):
@@ -558,14 +565,57 @@ class Composite(torch.autograd.Function):
                 None, None, None, None, None, None)
 
 
-def bin_instances(proj: ProjectedGaussians, opacity: torch.Tensor,
-                  cfg: RasterConfig):
-    """Prune, snug and bin: (proj with the snug rects, TileBins)."""
-    proj_b = _prune_and_snug(proj, opacity)
+# ------------------------------------------------------ the layout carry
+#
+# A binning layout (``TileBins``: gather_idx, tile_start, tile_count,
+# num_instances, overflow) is the port's counterpart of the JAX
+# ``BinState`` (``raster_pallas.py:639-670``) without the fast binner's
+# fields, which the port does not have. Carried across optimizer steps it
+# skips the binner, and its two host reads, under the JAX contract:
+#
+# - every call prunes and snugs the CURRENT parameters and regathers the
+#   current fields and packed 16 px rect through the carried gather_idx,
+#   so the kernels mask each pixel against the fresh rect and the fresh
+#   alpha cutoffs: an instance whose Gaussian moved away, faded below
+#   1/255 or was pruned (its rect is then 0) adds exactly zero value and
+#   zero gradient;
+# - a Gaussian that grew or moved beyond its binned coverage loses that
+#   sliver until the next rebin (the one approximation);
+# - gradients are the exact VJP of the stale forward: K1 and K2 read the
+#   same carried layout within one call, so K2's replay from K1's stop
+#   index and keff refer to the same runs;
+# - a slot may hold another Gaussian after densify or a capacity change:
+#   the caller rebins after any slot surgery, and a carry never outlives
+#   the call that made it (slot index n is padding for the n it was
+#   binned with).
+#
+# The tensors of a layout are never written in place (``Composite`` saves
+# them for the backward's version check). A layout is made by a fresh
+# render (``render(rebin=True)``, the JAX ``compute_bin_state``); there is
+# no ``zero_bin_state``: an eager loop starts its carry from None with a
+# forced rebin.
+
+
+def _bin_state(proj_b: ProjectedGaussians, cfg: RasterConfig) -> TileBins:
+    """Bin pruned + snugged projections at the bin granularity."""
     with torch.no_grad():
         bins = build_tile_bins(derive_bin_rect(proj_b, cfg.bin_scale),
                                cfg.grid_x, cfg.grid_y, cfg.max_instances)
-    return proj_b, bins
+    BINS["build_tile_bins"] += 1
+    return bins
+
+
+def _reuse_overflow(proj_b: ProjectedGaussians, cfg: RasterConfig
+                    ) -> torch.Tensor:
+    """``overflow`` of a render on a carried layout, JAX's quantity: the
+    instances the current snug coverage exceeds the capacity by,
+    max(0, sum of bin coverage - capacity), on the device with no host
+    read. It sees neither the sliver a stale layout loses nor CHUNK
+    padding (a fresh render counts what it actually dropped)."""
+    with torch.no_grad():
+        total = derive_bin_rect(proj_b, cfg.bin_scale).tiles_touched.sum()
+        cap = (cfg.max_instances // CHUNK) * CHUNK
+        return torch.clamp_min(total - cap, 0).to(torch.int32)
 
 
 def _records(mean2d, conic, rgbz, opacity, rect16, gather_idx):
@@ -580,25 +630,35 @@ def instance_records(proj: ProjectedGaussians, rgbz: torch.Tensor,
     two steps, without autograd: (feat (10, M), rect (M,), TileBins). For
     checking and timing the kernels on a real layout."""
     with torch.no_grad():
-        proj_b, bins = bin_instances(proj, opacity, cfg)
+        proj_b = _prune_and_snug(proj, opacity)
+        bins = _bin_state(proj_b, cfg)
         feat, rect = _records(proj_b.mean2d, proj_b.conic, rgbz, opacity,
                               proj_b.tile_rect, bins.gather_idx)
     return feat, rect, bins
 
 
 def rasterize(proj: ProjectedGaussians, rgbz: torch.Tensor,
-              opacity: torch.Tensor, cfg: RasterConfig):
+              opacity: torch.Tensor, cfg: RasterConfig,
+              bins: TileBins | None = None):
     """Rasterize projected Gaussians through the compositing kernels.
 
     rgbz: (N, 4) per-Gaussian [r, g, b, z]; opacity: (N,) in [0, 1].
+    bins: a carried layout to reuse (see the layout carry above); None
+    bins fresh.
     Returns {"image": (6, H, W) [r, g, b, z, sil, z^2] without background,
-    "final_T": (H, W), "overflow": () instances dropped at the cap,
-    "num_instances": () instances binned}.
+    "final_T": (H, W), "overflow": () instances dropped at the cap (on a
+    carried layout: ``_reuse_overflow``), "num_instances": () instances in
+    the layout, "bins": the layout used}.
     """
-    proj_b, bins = bin_instances(proj, opacity, cfg)
+    proj_b = _prune_and_snug(proj, opacity)
+    if bins is None:
+        bins = _bin_state(proj_b, cfg)
+        overflow = bins.overflow
+    else:
+        overflow = _reuse_overflow(proj_b, cfg)
     out = Composite.apply(proj_b.mean2d, proj_b.conic, rgbz, opacity,
                           proj_b.tile_rect, bins.gather_idx, bins.tile_start,
                           bins.tile_count, cfg.grid_x, cfg.grid_y)
     out = out[:, :cfg.height, :cfg.width]
-    return {"image": out[0:6], "final_T": out[6], "overflow": bins.overflow,
-            "num_instances": bins.num_instances}
+    return {"image": out[0:6], "final_T": out[6], "overflow": overflow,
+            "num_instances": bins.num_instances, "bins": bins}

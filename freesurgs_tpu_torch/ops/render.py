@@ -25,6 +25,7 @@ import torch
 from ..core.camera import Camera
 from ..core.sh import sh_to_rgb_clamped
 from ..core.transforms import transform_points
+from .binning import TileBins
 from .projection import project_gaussians
 from .raster_cuda import RasterConfig, instance_records, rasterize
 
@@ -79,7 +80,9 @@ def render(means3d: torch.Tensor, quats: torch.Tensor,
            bg: torch.Tensor | None = None,
            max_instances: int = 0,
            gs_grad: bool = True,
-           cam_grad: bool = True) -> dict[str, Any]:
+           cam_grad: bool = True,
+           bins: TileBins | None = None,
+           rebin: bool | None = None) -> dict[str, Any]:
     """Render a view of the Gaussian field.
 
     means3d (N, 3), quats (N, 4) unnormalized (w, x, y, z), log_scales
@@ -87,11 +90,21 @@ def render(means3d: torch.Tensor, quats: torch.Tensor,
     Compositing runs the CUDA kernels on a CUDA tensor and their plain
     versions on a CPU tensor (ops/raster_cuda.py).
     max_instances: cap on the instance buffer (0 -> DEFAULT_MAX_INSTANCES).
+    bins / rebin: the binning-layout carry (ops/raster_cuda.py, "the layout
+    carry"). ``rebin`` None renders without one; True bins fresh (``bins``
+    may be None, the start of a carry); False reuses ``bins``. With a
+    carry the result holds "bins", the layout used, for the caller to
+    carry on (JAX ``render(bins=, rebin=)``, with a host bool for the
+    traced one).
 
     Returns render (3, H, W), render_dep, render_sil, presence_mask,
     uncertainty, final_T, render_w2c, radii, visibility, overflow
     (instances dropped at the cap; 0 below it) and num_instances.
     """
+    if rebin is None and bins is not None:
+        raise ValueError("a bins carry needs a rebin flag")
+    if rebin is False and bins is None:
+        raise ValueError("rebin=False needs a layout to reuse")
     if bg is None:
         bg = torch.ones(3, dtype=means3d.dtype, device=means3d.device)
 
@@ -105,14 +118,17 @@ def render(means3d: torch.Tensor, quats: torch.Tensor,
         gs(sh_coeffs), w2c_used, cam, active, probe2d, sh_degree)
     bg6 = torch.cat([bg, torch.ones(3, dtype=bg.dtype, device=bg.device)])
 
-    out = rasterize(proj, rgbz, opacity, raster_config(cam, max_instances))
+    out = rasterize(proj, rgbz, opacity, raster_config(cam, max_instances),
+                    bins=None if rebin else bins)
     final_T = out["final_T"]
     image6 = out["image"] + final_T[None] * bg6[:, None, None]
 
     depth = image6[3]
     sil = image6[4]
     depth_sq = image6[5]
+    extra = {} if rebin is None else {"bins": out["bins"]}
     return {
+        **extra,
         "render": image6[0:3],
         "render_dep": depth,
         "render_sil": sil,

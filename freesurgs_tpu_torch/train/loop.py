@@ -9,10 +9,11 @@
     gets one render to keep the depth cache (the next frame's flow loss and
     GN solve) alive;
  3. global refinement: single-view mapping iterations over random train
-    frames in chunks, with periodic checkpoints and validation;
+    frames in chunks, with periodic checkpoints and validation, and with
+    pose_ba_every > 0 a pose-BA pass over the train frames;
  4. validation: test-view PSNR / SSIM / LPIPS and sim(3)-aligned ATE / RPE.
 
-Pose BA, panels and the viewer wait for a later slice (ROADMAP.md,
+PnP pose init, panels and the viewer wait for a later slice (ROADMAP.md,
 Queue 1) and raise when asked for.
 """
 
@@ -29,6 +30,7 @@ from ..convert import FIELD_KEYS
 from ..core.camera import Camera
 from ..eval.image_metrics import psnr, rgb_evaluation
 from ..eval.pose_metrics import evaluate_subsequences
+from ..eval.pose_refine import refine_poses_scan
 from ..io.checkpoint import (load_checkpoint_meta, restore_checkpoint,
                              save_checkpoint)
 from ..models import pose as posemod
@@ -75,7 +77,13 @@ class Trainer:
                                           # into the caches (False: leave
                                           # them empty, the reference's
                                           # behaviour)
-    pose_ba_every: int = 0                # ROADMAP Queue 1 item 3
+    pose_ba_every: int = 0                # global-stage pose BA every N
+                                          # global iterations (0 off): the
+                                          # train poses but frame 0 are
+                                          # refined against the frozen map
+                                          # (eval/pose_refine.py)
+    pose_ba_iters: int = 25
+    pose_ba_lr: float = 1e-3
     metrics_logger: Any = None            # utils/logging.MetricsLogger:
                                           # history rows go to
                                           # metrics.jsonl at the log cadence
@@ -88,10 +96,6 @@ class Trainer:
         if self.pose_init != "const_velocity":
             raise NotImplementedError(
                 "pose_init='pnp' (pnp_pose_init) is ROADMAP Queue 1 item 6")
-        if self.pose_ba_every:
-            raise NotImplementedError(
-                "pose_ba_every > 0 (global-stage pose BA, "
-                "eval/pose_refine.py) is ROADMAP Queue 1 item 3")
         if self.panel_fn is not None or self.viewer is not None:
             raise NotImplementedError(
                 "panels and the viewer (utils/image.py, viz/) are ROADMAP "
@@ -284,8 +288,10 @@ class Trainer:
             if self.colors.is_cuda:
                 torch.cuda.synchronize(self.colors.device)
             metrics["seconds"] = time.time() - t_frame
-            self.history.append({"stage": "progressive", "frame": t,
-                                 **metrics})
+            row = {"stage": "progressive", "frame": t, **metrics}
+            if t in i_train and aux["keyframe_views"] is not None:
+                row["keyframe_views"] = aux["keyframe_views"].tolist()
+            self.history.append(row)
             if t % 10 == 0:
                 self.log_fn(f"[progressive {t}/{self.num_frames}] "
                             + " ".join(f"{k}={float(v):.4g}"
@@ -297,8 +303,11 @@ class Trainer:
     def global_run(self, iters: int | None = None):
         """``iters`` single-view mapping iterations over random train frames
         (cfg.global_iters when None), in chunks of ``global_chunk``. The
-        cadences (checkpoints, validation, logs) count the total over all
-        calls, which the history rows record as ``iter``."""
+        cadences (checkpoints, pose BA, validation, logs) count the total
+        over all calls, which the history rows record as ``iter``. With
+        cfg.rebin_every > 1 each chunk visits its draws in sorted order, so
+        that runs of one frame reuse its binning layout (the same multiset
+        from the same stream)."""
         iters = iters if iters is not None else self.cfg.global_iters
         i_train = np.asarray(self.seq.i_train, np.int64)
         rng = self._global_rng
@@ -309,7 +318,10 @@ class Trainer:
         while done < iters:
             self._update_sh_degree()
             n = min(self.global_chunk, iters - done)
-            ts = [int(t) for t in rng.choice(i_train, size=n)]
+            ts_np = rng.choice(i_train, size=n)
+            if self.cfg.rebin_every > 1:
+                ts_np = np.sort(ts_np)
+            ts = [int(t) for t in ts_np]
             self.state, aux = mapping_chunk(
                 self.state, self.colors, self.monodeps, w2c_all, ts, [],
                 self.cam, self.cfg, two_views=False,
@@ -318,6 +330,9 @@ class Trainer:
             self._maybe_grow()
             self._global_done += n
             total = self._global_done
+            # before the checkpoint, so that it holds the refined poses
+            if self.pose_ba_every and total % self.pose_ba_every < n:
+                w2c_all = self._pose_ba_pass(total)
             if self.checkpoint_dir and total % self.checkpoint_every < n:
                 self.save(f"{self.checkpoint_dir}/ckpt_{total:07d}")
             if total % 1000 < n:
@@ -344,6 +359,26 @@ class Trainer:
             if total % 1000 < n:
                 self._flush_history()
         self._flush_history()
+
+    def _pose_ba_pass(self, total: int):
+        """One global-stage pose-BA pass: refine every train-frame pose but
+        frame 0's against the frozen map (test frames stay as tracked).
+        Returns the w2c table the following chunks map with."""
+        ts = [int(t) for t in np.asarray(self.seq.i_train) if t != 0]
+        quats, trans, best, overflow = refine_poses_scan(
+            self.field, self.poses.quats, self.poses.trans, self.colors, ts,
+            self.cam, iters=self.pose_ba_iters, lr=self.pose_ba_lr,
+            sh_degree=self.active_sh_degree,
+            max_instances=self.cfg.instance_cap)
+        self.poses = PoseTable(quats=quats, trans=trans)
+        mean_loss = float(best.mean())
+        self.log_fn(f"[global {total}] pose-BA pass over {len(ts)} train "
+                    f"frames: mean photometric loss {mean_loss:.4f}")
+        self.history.append({"stage": "pose_ba", "iter": total,
+                             "mean_loss": mean_loss,
+                             "overflow": float(overflow)})
+        with torch.no_grad():
+            return self.poses.all_w2c()
 
     def _report_nonfinite(self, aux, where: str):
         if float(aux["nonfinite_grads"]) <= 0:

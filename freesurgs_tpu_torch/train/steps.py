@@ -29,14 +29,14 @@ from . import losses
 from .densify import (DensifyConfig, add_render_stats, densify_and_prune,
                       reset_opacity, split_noise)
 from .flow_pnp import flow_pnp_refine
+from .keyframes import keyframe_overlap_scores, select_overlap_keyframes
 from .optim import (AdamState, adam_init, adam_update, apply_updates,
                     expon_lr, tracking_lr)
 
 
 class TrainConfig(NamedTuple):
     """The reference's hyper-parameters, with the JAX package's fields and
-    defaults. Fields whose feature waits for a later slice raise when set
-    away from the reference behaviour (see ``check_supported``)."""
+    defaults (``check_supported`` says what the port refuses)."""
     tracking_iters: int = 50
     mapping_iters: int = 30
     first_frame_mapping_iters: int = 200
@@ -93,20 +93,16 @@ class TrainConfig(NamedTuple):
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for the features that wait for a later slice (ROADMAP.md,
-    Queue 1) instead of running something else quietly."""
+    """Raise for what the port does not run instead of running something
+    else quietly."""
     if cfg.impl not in (None, "raster"):
         raise NotImplementedError(
             f"impl={cfg.impl!r}: the port renders only through its "
             "compositing kernels (impl=None or 'raster'); the dense oracle "
             "is a test reference (ops/oracle.py)")
-    if cfg.rebin_every > 1 or cfg.rebin_tracking_every > 1:
-        raise NotImplementedError(
-            "BinState reuse (rebin_every > 1) is ROADMAP Queue 1 item 2")
-    if cfg.keyframe_policy != "uniform":
-        raise NotImplementedError(
-            "keyframe_policy='overlap' (train/keyframes.py) is ROADMAP "
-            "Queue 1 item 5")
+    if cfg.keyframe_policy not in ("uniform", "overlap"):
+        raise ValueError(f"keyframe_policy={cfg.keyframe_policy!r}: "
+                         "'uniform' or 'overlap'")
 
 
 def _isfinite_count(g: torch.Tensor) -> torch.Tensor:
@@ -124,6 +120,9 @@ def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
                   cfg: TrainConfig, sh_degree: int = 0):
     """Optimize one frame's (quat, trans) for cfg.tracking_iters Adam steps
     with the Gaussians frozen. Returns (quat, trans, metrics).
+
+    With cfg.rebin_tracking_every > 1 the binning layout is carried across
+    iterations and rebuilt when i % rebin_tracking_every == 0.
 
     With cfg.tracking_gn_iters > 0 the pose is first refined by the
     Gauss-Newton flow-PnP solve (train/flow_pnp.py) on the same inputs as
@@ -144,14 +143,19 @@ def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
     overflow_max = torch.zeros((), device=dev)
     zero = torch.zeros((), device=dev)
     last = (zero, zero, zero)      # JAX's fori_loop carry: zeros at 0 iters
+    carry = cfg.rebin_tracking_every > 1
+    bins = None
     for i in range(cfg.tracking_iters):
         q = pose["q"].requires_grad_(True)
         t = pose["t"].requires_grad_(True)
         w2c = build_w2c(q, t)
         out = render(field.means, field.quats, field.log_scales,
                      field.logit_opacity, sh, w2c, cam, active=field.active,
-                     sh_degree=sh_degree, max_instances=cfg.instance_cap, gs_grad=False,
-                     cam_grad=True)
+                     sh_degree=sh_degree, max_instances=cfg.instance_cap,
+                     gs_grad=False, cam_grad=True, bins=bins,
+                     rebin=(i % cfg.rebin_tracking_every == 0) if carry
+                     else None)
+        bins = out.get("bins")
         overflow_max = torch.maximum(overflow_max,
                                      out["overflow"].to(torch.float32))
         mask = (out["render_dep"] > 0) & (rigid_mask > 0)
@@ -198,6 +202,20 @@ _DENSIFY_KEYS = ("cloned", "split", "pruned_opacity", "pruned_world",
                  "pruned_screen", "dropped")
 
 
+def _overlap_keyframe(monodeps_all, w2c_all, cur_t, kf, cam, gen):
+    """The keyframe view's frame under keyframe_policy="overlap", as a 0-d
+    device tensor (no host read). JAX scores a keyframe array zero-padded
+    to the number of frames, with the padding's scores zeroed, so when no
+    keyframe overlaps it picks the LAST padded position: frame 0 unless
+    every frame is a keyframe. The padding here reproduces that pick."""
+    pad = w2c_all.shape[0] - len(kf)
+    scores = keyframe_overlap_scores(monodeps_all[cur_t], w2c_all[cur_t],
+                                     w2c_all[kf], cam, gen)
+    scores = torch.cat([scores, scores.new_zeros(pad)])
+    pos = select_overlap_keyframes(scores, gen, 1)[0]
+    return torch.tensor(kf + [0] * pad, device=scores.device)[pos]
+
+
 def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
                   cur_ts, keyframes, cam: Camera, cfg: TrainConfig,
                   two_views: bool, sh_degree: int,
@@ -205,13 +223,27 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
     """Run ``len(cur_ts)`` mapping iterations.
 
     cur_ts: the frame mapped at each iteration (host ints). two_views adds a
-    random-keyframe view per iteration (drawn from ``keyframes``, a host
-    list; empty -> frame 0); densify statistics come from that view only.
-    Densify fires every cfg.densify_interval global iterations below
-    cfg.densify_until and the opacity reset every
-    cfg.opacity_reset_interval. After each iteration the mapped frame's
-    rendered depth/color go into the bf16 prediction caches.
-    Returns (state, aux) with last-iteration and chunk diagnostics.
+    keyframe view per iteration (from ``keyframes``, a host list; empty ->
+    frame 0), drawn uniformly or, with keyframe_policy="overlap", among the
+    keyframes the current frame's monodepth prior overlaps; densify
+    statistics come from that view only. Densify fires every
+    cfg.densify_interval global iterations below cfg.densify_until and the
+    opacity reset every cfg.opacity_reset_interval. After each iteration
+    the mapped frame's rendered depth/color go into the bf16 prediction
+    caches.
+
+    With cfg.rebin_every > 1 each view carries its binning layout across
+    iterations (JAX ``steps.py:442-499``). With k the index in the chunk,
+    the current view rebins when force | cur_t != prev_t |
+    k % rebin_every == 0, force being the previous iteration's slot surgery
+    (densify or opacity reset) and true at k = 0. Under uniform keyframes
+    the chunk's keyframe draws are made up front and sorted, and the
+    keyframe view rebins on force | a new keyframe | k % rebin_every == 0;
+    under "overlap" it bins fresh every iteration. No carry outlives the
+    call (capacity grows between calls).
+    Returns (state, aux) with last-iteration and chunk diagnostics;
+    aux["keyframe_views"] is the (n,) frames of the keyframe view, None in
+    one-view chunks.
     """
     check_supported(cfg)
     field, opt = state.field, state.opt
@@ -233,20 +265,33 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
     first_nf = torch.tensor(n_it, device=dev)    # n_it: none
     loss = terms = None
 
+    amortize = cfg.rebin_every > 1
+    overlap = two_views and cfg.keyframe_policy == "overlap"
+    if amortize and two_views and not overlap:
+        # sorted draws: the same multiset, grouped so that runs of one
+        # keyframe reuse its layout (JAX amortize_kf)
+        kf_pos_seq = torch.sort(torch.randint(
+            0, len(kf), (n_it,), generator=gen)).values.tolist()
+    bins = kf_bins = None
+    prev_t = prev_kf = None
+    force = True
+    kf_views = []
+
     for it_idx, cur_t in enumerate(cur_ts):
         params = {k: v.detach().requires_grad_(True)
                   for k, v in field.param_dict().items()}
         probe = torch.zeros(field.capacity, 2, device=dev,
                             requires_grad=True)
         sh = torch.cat([params["sh_dc"], params["sh_rest"]], dim=1)
+        period = amortize and it_idx % cfg.rebin_every == 0
 
-        def view(t_idx, probe_t):
+        def view(t_idx, probe_t, bins_c, rebin):
             out = render(params["means"], params["quats"],
                          params["log_scales"], params["logit_opacity"], sh,
                          w2c_all[t_idx], cam, active=field.active,
                          probe2d=probe_t, sh_degree=sh_degree,
                          max_instances=cfg.instance_cap, gs_grad=True,
-                         cam_grad=False)
+                         cam_grad=False, bins=bins_c, rebin=rebin)
             rgb = cfg.w_rgb_mapping * losses.rgb_loss(out["render"],
                                                       colors_all[t_idx])
             mono = monodeps_all[t_idx]
@@ -260,14 +305,30 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
                 lpear = torch.zeros((), device=dev)
             return rgb + pear + lpear, out, torch.stack([rgb, pear, lpear])
 
+        rebin = (force or cur_t != prev_t or period) if amortize else None
         if two_views:
-            pos = int(torch.randint(0, len(kf), (), generator=gen))
-            l0, stats_out, _ = view(kf[pos], probe)
-            l1, cur_out, terms_t = view(cur_t, None)
+            kf_rebin = None
+            if overlap:
+                kf_t = _overlap_keyframe(monodeps_all, w2c_all, cur_t, kf,
+                                         cam, gen)
+            else:
+                if amortize:
+                    pos = kf_pos_seq[it_idx]
+                    kf_rebin = force or pos != prev_kf or period
+                    prev_kf = pos
+                else:
+                    pos = int(torch.randint(0, len(kf), (), generator=gen))
+                kf_t = kf[pos]
+            kf_views.append(kf_t)
+            l0, stats_out, _ = view(kf_t, probe, kf_bins, kf_rebin)
+            l1, cur_out, terms_t = view(cur_t, None, bins, rebin)
+            kf_bins = stats_out.get("bins")
             loss_t = l0 + l1
         else:
-            loss_t, cur_out, terms_t = view(cur_t, probe)
+            loss_t, cur_out, terms_t = view(cur_t, probe, bins, rebin)
             stats_out = cur_out
+        bins = cur_out.get("bins")
+        prev_t = cur_t
         names = list(params)
         grads = torch.autograd.grad(loss_t, [params[k] for k in names]
                                     + [probe])
@@ -293,6 +354,7 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
         field = field.replace(**apply_updates(
             {k: v.detach() for k, v in params.items()}, upd))
 
+        force = False
         if densify_enabled:
             if (iteration % cfg.densify_interval == 0
                     and iteration < cfg.densify_until):
@@ -303,9 +365,11 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
                 for k in _DENSIFY_KEYS:
                     dens_total[k] = dens_total[k] + getattr(ds, k)
                 n_densify += 1
+                force = True     # a slot may now hold another Gaussian
             if iteration % cfg.opacity_reset_interval == 0:
                 field, opt = reset_opacity(field, opt)
                 n_reset += 1
+                force = True     # grouped in, as in JAX
 
         # prediction caches, written in place (the JAX package rebuilds them)
         with torch.no_grad():
@@ -334,5 +398,10 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
            "densify_totals": dens_total,
            "densify_events": n_densify,
            "opacity_resets": n_reset,
-           "num_active": field.num_active}
+           "num_active": field.num_active,
+           # overlap picks are device tensors; uniform ones host ints,
+           # copied once
+           "keyframe_views": (None if not kf_views
+                              else torch.stack(kf_views) if overlap
+                              else torch.tensor(kf_views, device=dev))}
     return state, aux

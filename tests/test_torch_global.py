@@ -218,11 +218,11 @@ def test_cache_test_frames(cache):
     assert (gn_weight >= 64) == cache, gn_weight
 
 
-@pytest.mark.parametrize("kw,item", [({"pose_ba_every": 100}, "item 3"),
+@pytest.mark.parametrize("kw,item", [({"pose_init": "pnp"}, "item 6"),
                                      ({"panel_fn": print}, "item 10"),
                                      ({"viewer": object()}, "item 10")])
 def test_features_of_later_slices_raise(kw, item):
-    """Pose BA, panels and the viewer are not ported: asking for them
+    """PnP pose init, panels and the viewer are not ported: asking for them
     raises, naming the ROADMAP item, instead of training without them."""
     sc = make_scene(num_frames=3, n_gaussians=50, height=32, width=48,
                     seed=1)
