@@ -45,9 +45,21 @@ Phases, each printing one JSON line with its seconds:
   8. overlap — progressive SLAM with keyframe_policy="overlap": finite
      losses, frame 0 fitted, launches equal the renders made, the keyframe
      views picked;
-  9. kernels — one JSON line with every kernel's numbers (K1 / K2 from the
-     slice_frame0 layout and the slice's launches, K3 from the bench
-     scene);
+  9. cli     — the port's command line on the slice's scene written as a
+     SCARED directory by ``save_synthetic_as_scared``: the PNG codec
+     (frames decode to the arrays written, native un-filter = plain on
+     frame 0, frame 0 forced to each filter type), the directory loaded
+     raw and from the FSC1 cache the first load wrote (bitwise, K and
+     poses to f32), ``cli.train`` at the slice's depth cut (files, the
+     final validation row, panels, PLY = the final field's active rows),
+     ``cli.train --run_test true --run_start_checkpoint latest`` (its
+     validation = the final one) and ``cli.render --split all``; counters
+     reset just before each command and read just after, launches = the
+     renders made, panel renders included;
+ 10. kernels — the launches by path, then one JSON line with every
+     kernel's numbers (K1 / K2 from the slice_frame0 layout, their
+     launches summed over the slice, reuse, overlap and cli paths, K3
+     from the bench scene);
 then, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, when there is no CUDA device or
@@ -56,6 +68,9 @@ the package is not beside this script; any failed check raises.
 
 from __future__ import annotations
 
+import ast
+import contextlib
+import io
 import json
 import math
 import re
@@ -363,6 +378,7 @@ SLICE_CFG = dict(first_frame_mapping_iters=30, mapping_iters=10,
                  tracking_iters=10, densify_interval=40,
                  opacity_reset_interval=50, sh_increase_interval=10)
 SLICE_TRAINER = dict(sh_degree_max=3, init_mask_frac=0.1, global_chunk=10)
+VAL_KEYS = ("psnr", "ssim", "lpips", "ate", "rpe_trans", "rpe_rot_deg")
 
 
 def slice_sequence(dev):
@@ -561,7 +577,6 @@ def run_slice(dev, results, ckpt_root: Path):
     ckpts = sorted(p.name for p in ckpt_dir.iterdir() if p.is_dir())
     ckpt_bytes = dir_bytes(ckpt_root / "ckpt_final")
     gn_weights = [f["gn_weight"] for f in frames if "gn_weight" in f]
-    val_keys = ("psnr", "ssim", "lpips", "ate", "rpe_trans", "rpe_rot_deg")
     phase("slice", t0, frames=frames, run_seconds=seconds,
           progressive_seconds=prog_seconds, progressive_iterations=iters,
           progressive_iterations_per_s=iters / prog_seconds,
@@ -573,8 +588,8 @@ def run_slice(dev, results, ckpt_root: Path):
           gn_resid_px=[f["gn_resid_px"] for f in frames
                        if "gn_resid_px" in f],
           validation_seconds=val_seconds,
-          validation={k: val[k] for k in val_keys + ("lpips_backend",)},
-          global_validations=[{k: h.get(k) for k in ("iter",) + val_keys}
+          validation={k: val[k] for k in VAL_KEYS + ("lpips_backend",)},
+          global_validations=[{k: h.get(k) for k in ("iter",) + VAL_KEYS}
                               for h in vals],
           checkpoints=ckpts, checkpoint_bytes=ckpt_bytes,
           save_seconds=save_seconds, restore_seconds=restore_seconds,
@@ -612,7 +627,7 @@ def run_slice(dev, results, ckpt_root: Path):
           f"the global stage did not fit frame 0 again after the reset: "
           f"{psnr_post_reset} -> {psnr_end}")
     check([h["iter"] for h in vals] == [20, 40]
-          and all(math.isfinite(h[k]) for h in vals for k in val_keys)
+          and all(math.isfinite(h[k]) for h in vals for k in VAL_KEYS)
           and val["lpips_backend"] in ("weights", "random_features"),
           f"validation rows {vals}")
     check(ckpts == ["ckpt_0000020", "ckpt_0000040"],
@@ -645,9 +660,11 @@ def run_slice(dev, results, ckpt_root: Path):
             "freesurgs_tpu/ops/raster_pallas.py:415"))]
     return {"progressive_iterations_per_s": iters / prog_seconds,
             "global_iterations_per_s_with_val_and_ckpt": 40 / global_seconds,
+            "resumed_global_iterations_per_s": 10 / resumed_seconds,
+            "launches": launches,
             "binnings_per_render": bins / exp_fwd,
             "max_memory_allocated": peak,
-            "validation": {k: val[k] for k in val_keys}}
+            "validation": {k: val[k] for k in VAL_KEYS}}
 
 
 def frame_loss(tr, t: int, quat, trans) -> float:
@@ -916,7 +933,6 @@ def run_reuse(dev, slice_summary: dict):
         and torch.equal(tr.poses.trans[t], poses_global0[1][t])
         for t in pinned)
     monotone = all(c["loss_returned"] <= c["loss_start"] for c in ba_checks)
-    val_keys = ("psnr", "ssim", "lpips", "ate", "rpe_trans", "rpe_rot_deg")
     summary = dict(
         run_seconds=seconds, progressive_seconds=prog_seconds,
         progressive_iterations=iters,
@@ -936,7 +952,7 @@ def run_reuse(dev, slice_summary: dict):
         psnr_frame0_after_mapping=psnr_cached,
         psnr_frame0_post_reset=psnr_post_reset,
         psnr_frame0_end_of_run=psnr_end,
-        validation={k: val[k] for k in val_keys},
+        validation={k: val[k] for k in VAL_KEYS},
         overflow_max=overflow, max_memory_allocated=peak,
         slice_same_call=slice_summary)
     check(all(math.isfinite(x) for x in losses + [psnr_end]),
@@ -957,6 +973,7 @@ def run_reuse(dev, slice_summary: dict):
     summary["carry"] = carry_exactness(tr)
     summary["per_iteration"] = iteration_costs(tr)
     phase("reuse", t0, **summary)
+    return launches
 
 
 def run_overlap(dev):
@@ -1007,6 +1024,290 @@ def run_overlap(dev):
           f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
     check(bins == exp_fwd, f"binnings {bins} != renders {exp_fwd}")
     check(overflow == 0, f"instance overflow {overflow}")
+    return launches
+
+
+# The cli phase's depth cut, through --train_override: the slice's, with
+# the global stage's 40 iterations as global_iters.
+CLI_OVERRIDES = {**SLICE_CFG, "global_iters": 40}
+
+
+def cli_argv(data: Path, out: Path) -> list[str]:
+    argv = ["--data_source_path", str(data), "--run_model_path", str(out),
+            "--run_global_chunk", "10", "--model_init_mask_frac", "0.1",
+            "--data_sample_rate", "4"]
+    for k, v in CLI_OVERRIDES.items():
+        argv += ["--train_override", f"{k}={v}"]
+    return argv
+
+
+def quiet(fn, *args):
+    """(fn(*args), what it printed): the CLIs' console lines stay out of
+    this script's JSON lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    return res, buf.getvalue()
+
+
+def metric_rows(out: Path) -> list[dict]:
+    return [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+
+
+def check_png_codec(frames: list, pngs: list[Path]) -> dict:
+    """The fixture's PNGs decode to the uint8 frames written; frame 0's
+    stream un-filters bitwise by the native and the plain version (host
+    clock rates over the image bytes), and frame 0 encoded with each filter
+    type forced on every row decodes back bitwise."""
+    import numpy as np
+    from freesurgs_tpu_torch.io import native, png
+
+    H, W = frames[0].shape[:2]
+    nbytes = H * W * 3
+    t = time.perf_counter()
+    native.build()                      # g++, unless this source's exists
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    decoded = [png.read_png(str(p)) for p in pngs]
+    read_s = time.perf_counter() - t
+    check(all(np.array_equal(d, f) for d, f in zip(decoded, frames)),
+          "a fixture frame does not decode to the array written")
+    counts = np.zeros(5, np.int64)
+    for p in pngs:
+        _, raw = png.read_chunks(str(p))
+        counts += np.bincount(np.frombuffer(raw, np.uint8)
+                              .reshape(H, 1 + 3 * W)[:, 0], minlength=5)
+    _, raw0 = png.read_chunks(str(pngs[0]))
+    raw0 = np.frombuffer(raw0, np.uint8)
+    t = time.perf_counter()
+    for _ in range(10):
+        nat = native.png_unfilter(raw0, H, W, 3)
+    native_s = (time.perf_counter() - t) / 10
+    t = time.perf_counter()
+    plain = png.unfilter_plain(raw0, H, W)
+    plain_s = time.perf_counter() - t
+    check(np.array_equal(nat, plain), "native and plain un-filter differ")
+    cands = png.filter_candidates(frames[0])
+    forced = []
+    for k in range(5):
+        stream = np.concatenate([np.full((H, 1), k, np.uint8), cands[k]], 1)
+        forced.append(np.array_equal(
+            native.png_unfilter(stream.ravel(), H, W, 3),
+            frames[0].reshape(H, 3 * W)))
+    check(all(forced), f"a forced filter type does not decode: {forced}")
+    return {"fsio_build_seconds": build_s,
+            "frames_decoded_bitwise": True, "rows_by_filter_type":
+            counts.tolist(), "forced_filter_types_bitwise": forced,
+            "frame0_native_equals_plain": True,
+            "unfilter_native_ms": native_s * 1e3,
+            "unfilter_plain_ms": plain_s * 1e3,
+            "unfilter_native_mb_per_s": nbytes / native_s / 1e6,
+            "unfilter_plain_mb_per_s": nbytes / plain_s / 1e6,
+            "native_over_plain": plain_s / native_s,
+            "read_png_mb_per_s": 4 * nbytes / read_s / 1e6}
+
+
+def run_cli(dev, smi: str, slice_summary: dict) -> dict:
+    """The port's command line end to end at 1280x1024: the slice's scene
+    written as a SCARED directory, loaded raw and from the FSC1 cache the
+    first load wrote, ``cli.train`` (progressive, global, checkpoints, PLY,
+    validation, panels), ``cli.train --run_test`` from the latest
+    checkpoint, and ``cli.render --split all``. Launch counters reset just
+    before each of the three commands and read just after; returns their
+    sum."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from freesurgs_tpu_torch.cli import render as cli_render
+    from freesurgs_tpu_torch.cli import train as cli_train
+    from freesurgs_tpu_torch.data.scared import (cache_path, frame_uint8,
+                                                 load_scared,
+                                                 save_synthetic_as_scared)
+    from freesurgs_tpu_torch.io.checkpoint import restore_checkpoint
+    from freesurgs_tpu_torch.io.png import read_png
+    from freesurgs_tpu_torch.io.ply import ply_to_field
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.train.loop import Trainer
+    from freesurgs_tpu_torch.train.steps import TrainConfig
+
+    t0 = time.time()
+    steps, res = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = Path(tmp) / "data", Path(tmp) / "run"
+        argv = cli_argv(data, out)
+
+        # 1. the fixture, written by the port
+        t1 = time.time()
+        scene, _ = slice_sequence(dev)
+        frames = [frame_uint8(c) for c in scene.colors]
+        save_synthetic_as_scared(scene, str(data))
+        del scene
+        steps["write_fixture"] = time.time() - t1
+        n_frames = len(frames)
+        H, W = frames[0].shape[:2]
+        pngs = sorted((data / "input").glob("*.png"))
+        check(len(pngs) == n_frames, f"{len(pngs)} frames written")
+        res["png"] = check_png_codec(frames, pngs)
+
+        # 2. loaded raw (writing the cache), then from the cache
+        t1 = time.time()
+        raw = load_scared(str(data), sample_rate=4)
+        steps["load_raw_and_write_cache"] = time.time() - t1
+        cpath = Path(cache_path(str(data), 0, -1, 4, "normalized"))
+        check(cpath.exists(), "the first load wrote no FSC1 cache")
+        t1 = time.time()
+        cached = load_scared(str(data), sample_rate=4)
+        steps["load_cached"] = time.time() - t1
+        same = {k: bool(np.array_equal(getattr(raw, k), getattr(cached, k)))
+                for k in ("colors", "flows_fw", "flows_bw", "monodeps",
+                          "i_train", "i_test")}
+        same["boundaries_and_names"] = (
+            raw.boundaries == cached.boundaries
+            and raw.image_names == cached.image_names)
+        same["K_and_poses_to_f32"] = (
+            np.array_equal(raw.cam.intrinsic_matrix(),
+                           cached.cam.intrinsic_matrix())
+            and list(raw.gt_poses) == list(cached.gt_poses)
+            and all(np.array_equal(raw.gt_poses[k].astype(np.float32),
+                                   cached.gt_poses[k])
+                    for k in raw.gt_poses))
+        check(all(same.values()), f"the cached load differs: {same}")
+        check(list(cached.i_test) == [2], f"test frames {cached.i_test}")
+        res["cache_equal_to_raw"] = same
+        res["cache_bytes"] = cpath.stat().st_size
+
+        # 3. cli.train, the stages timed by wrapping the Trainer's methods
+        stage = {}
+
+        def timed(name, fn):
+            def run(self, *a, **kw):
+                t = time.time()
+                r = fn(self, *a, **kw)
+                torch.cuda.synchronize()
+                stage[name] = time.time() - t
+                return r
+            return run
+
+        rc.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        with mock.patch.object(Trainer, "progressive_run", timed(
+                "progressive", Trainer.progressive_run)), \
+                mock.patch.object(Trainer, "global_run", timed(
+                    "global", Trainer.global_run)):
+            code, log = quiet(cli_train.main, argv)
+        torch.cuda.synchronize()
+        steps["train"] = time.time() - t1
+        launches = {"train": dict(rc.LAUNCHES)}
+        res["peak_memory_allocated_train"] = torch.cuda.max_memory_allocated()
+        check(code == 0 and "all complete" in log,
+              f"cli.train exited {code}: {log[-2000:]}")
+        for name in ("config.json", "metrics.jsonl", "ckpt_progressive",
+                     "ckpt_final", "point_cloud.ply"):
+            check((out / name).exists(), f"cli.train wrote no {name}")
+        rows = metric_rows(out)
+        final = {k: rows[-1].get(k) for k in VAL_KEYS}
+        check(all(isinstance(v, float) and math.isfinite(v)
+                  for v in final.values()), f"final validation {rows[-1]}")
+        # the renders: progressive (tracking, mapping, the test frame's
+        # cache render), 40 global iterations, the final validation, and
+        # a panel render per compare panel and per val panel
+        cfg = TrainConfig(**CLI_OVERRIDES)
+        exp_fwd, exp_bwd, iters = progressive_counts(cfg, cached)
+        n_test = len(cached.i_test)
+        compare = [t for t in cached.i_train if t % 25 == 0]
+        exp = {"composite_fwd": exp_fwd + cfg.global_iters + n_test
+               + len(compare) + n_test,
+               "composite_bwd": exp_bwd + cfg.global_iters}
+        check(launches["train"] == exp,
+              f"cli.train launches {launches['train']} != renders {exp}")
+        panels = sorted(p.name for p in (out / "panels").glob("*.png"))
+        want = ([f"compare_f{t:04d}" for t in compare]
+                + [f"val_f{t:04d}" for t in cached.i_test])
+        check(sorted(p.rsplit("_", 1)[0] for p in panels) == sorted(want),
+              f"panels {panels}, expected {want}")
+        for p in panels:
+            t = int(p.split("_f")[1][:4])
+            parts = 5 if t + 1 < n_frames else 4
+            shape = read_png(str(out / "panels" / p)).shape
+            check(shape == (H + 9, parts * W + 2 * (parts - 1), 3),
+                  f"panel {p} has shape {shape}")
+        tree, _ = restore_checkpoint(str(out / "ckpt_final"),
+                                     map_location="cpu")
+        fld = tree["state"]["field"]
+        act = fld["active"]
+        ply = ply_to_field(str(out / "point_cloud.ply"),
+                           max_sh_degree=int(fld["max_sh_degree"]),
+                           device="cpu")
+        ply_equal = ply.capacity == int(act.sum()) and all(
+            torch.equal(getattr(ply, k), fld[k][act]) for k in (
+                "means", "quats", "log_scales", "logit_opacity", "sh_dc",
+                "sh_rest"))
+        check(ply_equal, "point_cloud.ply differs from the final field")
+        res.update(ply_rows=ply.capacity, num_active=int(act.sum()),
+                   ply_bytes=(out / "point_cloud.ply").stat().st_size,
+                   ply_equal_to_final_field_bitwise=ply_equal,
+                   panels=panels, final_validation=final,
+                   progressive_seconds=stage["progressive"],
+                   progressive_iterations=iters,
+                   progressive_iterations_per_s=iters / stage["progressive"],
+                   global_seconds=stage["global"],
+                   global_iterations_per_s=cfg.global_iters / stage["global"],
+                   slice_same_call={k: slice_summary[k] for k in (
+                       "progressive_iterations_per_s",
+                       "global_iterations_per_s_with_val_and_ckpt",
+                       "resumed_global_iterations_per_s")})
+
+        # 4. validation alone from the latest checkpoint
+        rc.reset_launches()
+        t1 = time.time()
+        code, log = quiet(cli_train.main, argv + [
+            "--run_start_checkpoint", "latest", "--run_test", "true"])
+        torch.cuda.synchronize()
+        steps["resume_validate"] = time.time() - t1
+        launches["resume_validate"] = dict(rc.LAUNCHES)
+        rows2 = metric_rows(out)
+        resumed = {k: rows2[-1].get(k) for k in VAL_KEYS}
+        check(code == 0 and "ckpt_final" in log and len(rows2) == len(rows)
+              + 1, f"cli.train --run_test exited {code}: {log[-2000:]}")
+        check(resumed == final, f"resumed validation {resumed} != the "
+              f"final one {final}")
+        check(launches["resume_validate"] == {
+            "composite_fwd": 2 * n_test, "composite_bwd": 0},
+            f"resume launches {launches['resume_validate']}")
+
+        # 5. cli.render over every frame
+        rc.reset_launches()
+        t1 = time.time()
+        code, log = quiet(cli_render.main, argv + [
+            "--run_start_checkpoint", str(out / "ckpt_final"),
+            "--split", "all"])
+        torch.cuda.synchronize()
+        steps["render"] = time.time() - t1
+        launches["render"] = dict(rc.LAUNCHES)
+        check(code == 0, f"cli.render exited {code}: {log[-2000:]}")
+        renders = sorted((out / "renders").glob("all_*.png"))
+        check(len(renders) == n_frames and all(
+            read_png(str(p)).shape == (H + 9, 4 * W + 6, 3)
+            for p in renders), f"renders {renders}")
+        cams = json.loads((out / "cameras.json").read_text())
+        check(len(cams) == n_frames, f"{len(cams)} cameras.json records")
+        printed = ast.literal_eval([ln for ln in log.splitlines()
+                                    if ln.startswith("{'psnr'")][-1])
+        check(all(math.isfinite(printed[k]) for k in ("psnr", "ssim",
+                                                      "lpips")),
+              f"render metrics {printed}")
+        check(launches["render"] == {"composite_fwd": n_frames,
+                                     "composite_bwd": 0},
+              f"render launches {launches['render']}")
+        res["render_metrics"] = printed
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("composite_fwd", "composite_bwd")}
+    phase("cli", t0, nvidia_smi=smi, step_seconds=steps, launches=launches,
+          **res)
+    return total
 
 
 def ptxas_report(reports: dict[str, str]) -> dict:
@@ -1074,8 +1375,14 @@ def main() -> int:
     del bench, params
     with tempfile.TemporaryDirectory() as ckpt_root:
         slice_summary = run_slice(dev, results, Path(ckpt_root))
-    run_reuse(dev, slice_summary)
-    run_overlap(dev)
+    paths = {"slice": slice_summary["launches"],
+             "reuse": run_reuse(dev, slice_summary),
+             "overlap": run_overlap(dev),
+             "cli": run_cli(dev, smi, slice_summary)}
+    # K1 / K2 launches: the sum over the paths, each counted alone
+    for row in results["kernels"][:2]:
+        row["launches"] = sum(p[row["name"]] for p in paths.values())
+    print(json.dumps({"launches_by_path": paths}), flush=True)
     print(json.dumps({"kernels": results["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

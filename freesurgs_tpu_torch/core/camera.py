@@ -42,6 +42,14 @@ class Camera:
             [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
             dtype=np.float32)
 
+    @classmethod
+    def from_K(cls, K, height: int, width: int, **kw) -> "Camera":
+        """The camera of a 3x3 intrinsic matrix at (height, width)."""
+        K = np.asarray(K)
+        return cls(height=int(height), width=int(width), fx=float(K[0, 0]),
+                   fy=float(K[1, 1]), cx=float(K[0, 2]), cy=float(K[1, 2]),
+                   **kw)
+
 
 def pixel_grid(height: int, width: int, dtype=torch.float32,
                device=None):

@@ -13,8 +13,12 @@
     pose_ba_every > 0 a pose-BA pass over the train frames;
  4. validation: test-view PSNR / SSIM / LPIPS and sim(3)-aligned ATE / RPE.
 
-PnP pose init, panels and the viewer wait for a later slice (ROADMAP.md,
-Queue 1) and raise when asked for.
+With ``panel_fn`` the Trainer emits labelled panels (render | gt | depth |
+monodep | flow) every ``panel_every`` frames of the progressive stage and
+for every test view it validates; each panel is one more render.
+
+PnP pose init and the viewer wait for a later slice (ROADMAP.md, Queue 1)
+and raise when asked for.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..models import pose as posemod
 from ..models.gaussians import GaussianField, from_rgbd, grow_capacity
 from ..models.pose import PoseTable, identity_poses
 from ..ops.render import render
+from ..utils.image import add_label, colorize_depth, colorize_flow, hcat
 from .optim import AdamState, adam_init
 from .steps import MappingState, TrainConfig, check_supported, \
     mapping_chunk, tracking_loop
@@ -87,7 +92,9 @@ class Trainer:
     metrics_logger: Any = None            # utils/logging.MetricsLogger:
                                           # history rows go to
                                           # metrics.jsonl at the log cadence
-    panel_fn: Any = None                  # ROADMAP Queue 1 item 10
+    panel_fn: Any = None                  # callable(name, hwc_img, step):
+                                          # labelled comparison panels
+    panel_every: int = 25                 # every N progressive frames
     validation_every: int = 5000          # mid-global test-view eval; 0 off
     max_capacity: int = 589_824
     device: Any = "cuda"
@@ -96,10 +103,9 @@ class Trainer:
         if self.pose_init != "const_velocity":
             raise NotImplementedError(
                 "pose_init='pnp' (pnp_pose_init) is ROADMAP Queue 1 item 6")
-        if self.panel_fn is not None or self.viewer is not None:
+        if self.viewer is not None:
             raise NotImplementedError(
-                "panels and the viewer (utils/image.py, viz/) are ROADMAP "
-                "Queue 1 item 10")
+                "the viewer (viz/) is ROADMAP Queue 1 item 10")
         check_supported(self.cfg)
         dev = torch.device(self.device)
         seq = self.seq
@@ -282,6 +288,8 @@ class Trainer:
                 metrics["opacity_resets"] = aux["opacity_resets"]
                 self._maybe_grow()
                 self._report_nonfinite(aux, f"frame {t}")
+                if self.panel_fn is not None and t % self.panel_every == 0:
+                    self._emit_panel(t)
             if overflow:
                 metrics["overflow"] = torch.stack(
                     [o.to(torch.float32) for o in overflow]).max()
@@ -399,6 +407,28 @@ class Trainer:
                           sh_degree=self.active_sh_degree,
                           max_instances=self.cfg.instance_cap)
 
+    def _emit_panel(self, t: int, name: str = "compare"):
+        """Hand ``panel_fn`` frame t's labelled render | gt | depth |
+        monodep | flow panel (no flow for the last frame), named
+        ``<name>_f<t:04d>``, at the current iteration (no-op without a
+        panel_fn)."""
+        if self.panel_fn is None:
+            return
+        out = self.render_frame(t)
+
+        def np_(x):
+            return x.cpu().numpy()
+
+        parts = [add_label(np_(torch.clamp(out["render"], 0, 1)), "render"),
+                 add_label(np_(self.colors[t]), "gt"),
+                 add_label(colorize_depth(np_(out["render_dep"])), "depth"),
+                 add_label(colorize_depth(np_(self.monodeps[t])), "monodep")]
+        if t + 1 < self.num_frames:
+            parts.append(add_label(colorize_flow(np_(self.flows_fw[t])),
+                                   "flow"))
+        self.panel_fn(f"{name}_f{t:04d}", hcat(*parts),
+                      int(self.state.iteration))
+
     def _render_stack(self, frames):
         """Clamped renders and ground truths of ``frames`` as (N, 3, H, W)
         numpy stacks, and the largest overflow of those renders."""
@@ -423,6 +453,8 @@ class Trainer:
             preds, gts, overflow = self._render_stack(test)
             metrics.update(rgb_evaluation(gts, preds,
                                           device=self.colors.device))
+            for t in test:
+                self._emit_panel(t, name="val")
         if include_train:
             train = [int(i) for i in np.asarray(self.seq.i_train)][::8]
             preds, gts, ov = self._render_stack(train)

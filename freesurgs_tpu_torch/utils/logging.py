@@ -1,6 +1,7 @@
-"""JSONL metrics log (the ``MetricsLogger.log`` / ``info`` part of
-``freesurgs_tpu/utils/logging.py``): an append-only ``metrics.jsonl`` any
-dashboard can tail, and plain console lines."""
+"""JSONL metrics log and training panels (the ``MetricsLogger`` of
+``freesurgs_tpu/utils/logging.py`` without its wandb and rich sinks): an
+append-only ``metrics.jsonl`` any dashboard can tail, plain console lines,
+and panels as PNGs under ``panels/``."""
 
 from __future__ import annotations
 
@@ -8,6 +9,8 @@ import json
 import os
 import time
 from typing import Any
+
+from .image import save_image
 
 
 class MetricsLogger:
@@ -31,6 +34,15 @@ class MetricsLogger:
         self._f.flush()
         if echo:
             self.info(" ".join(f"{k}={v}" for k, v in rec.items()))
+
+    def log_image(self, name: str, img, step: int | None = None):
+        """Save an (H, W, 3) float panel as
+        ``<out_dir>/panels/<name>_<step:07d>.png`` (no suffix without a
+        step)."""
+        d = os.path.join(os.path.dirname(self.path), "panels")
+        os.makedirs(d, exist_ok=True)
+        suffix = f"_{step:07d}" if step is not None else ""
+        save_image(img, os.path.join(d, f"{name}{suffix}.png"))
 
     def info(self, msg: str):
         print(msg, flush=True)

@@ -40,6 +40,13 @@ TRAINER_KW = dict(sh_degree_max=1, capacity=4096, global_chunk=4,
                   validation_every=8, log_fn=lambda *a: None)
 
 
+class Panels(list):
+    """A ``panel_fn`` that keeps (name, step, panel) in order."""
+
+    def __call__(self, name, img, step):
+        self.append((name, int(step), np.asarray(img)))
+
+
 class Seq:
     def __init__(self, sc, cam):
         self.cam = cam
@@ -59,7 +66,7 @@ def runs(tmp_path_factory):
     jtr = JTrainer(Seq(sc, sc.cam),
                    js.TrainConfig(impl="oracle", max_instances=16384,
                                   densify=DensifyConfig(), **KW),
-                   **TRAINER_KW)
+                   panel_fn=Panels(), panel_every=1, **TRAINER_KW)
     jtr.progressive_run()
     jtr.global_run(8)
     jtr.global_run(4)
@@ -67,7 +74,8 @@ def runs(tmp_path_factory):
     logger = MetricsLogger(str(out))
     ttr = TTrainer(Seq(sc, tcam(sc.cam)), ts.TrainConfig(**KW),
                    checkpoint_dir=str(out), checkpoint_every=8,
-                   metrics_logger=logger, device="cpu", **TRAINER_KW)
+                   metrics_logger=logger, device="cpu", panel_fn=Panels(),
+                   panel_every=1, **TRAINER_KW)
     ttr.progressive_run()
     ttr.global_run(8)
     ttr.global_run(4)
@@ -134,6 +142,23 @@ def test_validation_matches_jax(runs):
     assert final[1]["lpips_backend"] == final[0]["lpips_backend"] \
         == "random_features"
     assert final[1]["overflow"] == 0
+
+
+def test_panels_match_jax(runs):
+    """With panel_every=1 both Trainers hand panel_fn the same panels: a
+    compare panel per mapped frame, a val panel per validated test view, at
+    the same iterations and shapes; pixels to 1e-4."""
+    _, jtr, ttr, _ = runs
+    jp, tp = jtr.panel_fn, ttr.panel_fn
+    assert [(n, s) for n, s, _ in tp] == [(n, s) for n, s, _ in jp]
+    assert [n for n, _, _ in tp][:3] == ["compare_f0000", "compare_f0001",
+                                         "val_f0002"]
+    assert [s for _, s, _ in tp][:3] == [6, 9, 17]
+    for (name, _, j), (_, _, t) in zip(jp, tp):
+        assert j.shape == t.shape and t.dtype == np.float32, name
+        np.testing.assert_allclose(j, t, atol=1e-4, err_msg=name)
+    # frame 2, the last, has no flow: four parts, not five
+    assert tp[2][2].shape[1] < tp[1][2].shape[1]
 
 
 def test_periodic_checkpoints_and_metrics_log(runs):
@@ -219,11 +244,10 @@ def test_cache_test_frames(cache):
 
 
 @pytest.mark.parametrize("kw,item", [({"pose_init": "pnp"}, "item 6"),
-                                     ({"panel_fn": print}, "item 10"),
                                      ({"viewer": object()}, "item 10")])
 def test_features_of_later_slices_raise(kw, item):
-    """PnP pose init, panels and the viewer are not ported: asking for them
-    raises, naming the ROADMAP item, instead of training without them."""
+    """PnP pose init and the viewer are not ported: asking for them raises,
+    naming the ROADMAP item, instead of training without them."""
     sc = make_scene(num_frames=3, n_gaussians=50, height=32, width=48,
                     seed=1)
     with pytest.raises(NotImplementedError, match=item):

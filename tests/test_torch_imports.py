@@ -1,11 +1,12 @@
-"""The port and ``chip_smoke.py`` run on a machine without JAX: importing
-every module of ``freesurgs_tpu_torch``, and every module that
+"""The port and ``chip_smoke.py`` run on a machine without JAX, PIL or cv2:
+importing every module of ``freesurgs_tpu_torch``, and every module that
 ``chip_smoke.py`` imports (at top level or inside its functions), must load
-neither ``jax`` nor any module of the JAX package ``freesurgs_tpu``.
+neither ``jax`` nor any module of the JAX package ``freesurgs_tpu``, nor
+``PIL`` nor ``cv2``.
 
-Each case runs in a fresh interpreter where ``sys.modules["jax"] = None``,
-so any ``import jax`` raises, and then checks ``sys.modules`` for the JAX
-package.
+Each case runs in a fresh interpreter where ``sys.modules[name] = None``
+for ``jax``, ``PIL`` and ``cv2``, so importing any of them raises, and then
+checks ``sys.modules`` for the JAX package.
 """
 
 import ast
@@ -19,7 +20,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 _PROBE = """
 import importlib, pkgutil, sys
-sys.modules["jax"] = None
+for blocked in ("jax", "PIL", "cv2"):
+    sys.modules[blocked] = None
 sys.path.insert(0, {repo!r})
 names = {names!r}
 if names is None:
@@ -29,7 +31,7 @@ if names is None:
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and m.split(".")[0] in ("jax", "freesurgs_tpu"))
+             and m.split(".")[0] in ("jax", "freesurgs_tpu", "PIL", "cv2"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -57,4 +59,4 @@ def test_port_imports_no_jax(which):
         capture_output=True, text=True, timeout=300, cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= (30 if which == "package" else 5), res.stdout
+    assert n_mods >= (46 if which == "package" else 5), res.stdout
