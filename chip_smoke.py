@@ -8,12 +8,16 @@ Phases, each printing one JSON line with its seconds:
      power limit (also printed raw on a line of its own);
   2. build   — nvcc builds every kernel library from csrc/ (ptxas registers,
      shared memory and spills per kernel, each ablation variant included);
-  3. parity  — K1 and K2 against their plain PyTorch versions on bench.py's
-     scene (100k Gaussians, SH3, 1280x1024, seed 0), and K2 launched twice
-     on the same inputs (bitwise equal);
-  4. timing  — CUDA-event times of K1 / K2 and their plain versions, with
-     the pairs the records need and the least time the card could take
-     (bound_ms);
+  3. parity  — K1, K2 and the per-Gaussian sum after K2
+     (``gaussian_grad_sum``, bitwise its plain version) against their plain
+     PyTorch versions on bench.py's scene (100k Gaussians, SH3, 1280x1024,
+     seed 0), and K2 launched twice on the same inputs (its outputs and
+     their per-Gaussian sums bitwise equal); the sum also against
+     ``index_add_`` over ``gather_idx``, and the sum layout's runs against
+     ``gather_idx`` itself;
+  4. timing  — CUDA-event times of K1 / K2 / the sum and their plain
+     versions (the sum also beside ``index_add_``), with the pairs the
+     records need and the least time the card could take (bound_ms);
   5. ablate  — K3, the ablation family of K1's first design
      (ops/raster_ablate.py): the timing run over every variant on the bench
      scene, its launch counts read just after; then each variant against
@@ -56,10 +60,24 @@ Phases, each printing one JSON line with its seconds:
      validation = the final one) and ``cli.render --split all``; counters
      reset just before each command and read just after, launches = the
      renders made, panel renders included;
- 10. kernels — the launches by path, then one JSON line with every
-     kernel's numbers (K1 / K2 from the slice_frame0 layout, their
-     launches summed over the slice, reuse, overlap and cli paths, K3
-     from the bench scene);
+ 10. raw     — from raw frames: ``make_nonrigid_scene`` at the full-res
+     recipe cut to 6 frames, written as a SCARED directory without flow/
+     and monodep/, ``cli.produce_inputs`` on the card (seconds per flow
+     field; Horn-Schunck end-point error against the analytic flow on
+     textured pixels, gated as the JAX producer test gates it; the
+     parallax disparity's rank correlation with 1/depth, reported), frames
+     0-1 produced again on the CPU (the same arrays within the CPU tests'
+     tolerances), PnP on the analytic flow and rendered depth (frame 2
+     within 0.01 of the truth), then a Trainer(pose_init="pnp")'s
+     progressive stage, twice (counters reset just before each run and
+     read just after, launches = renders made; the PnP and the
+     constant-velocity init of frames 2-5 against the truth; the rigidity
+     mask's precision and recall on the non-rigid pixels; the first render
+     where the two runs differ, or none);
+ 11. kernels — the launches by path, then one JSON line with every
+     kernel's numbers (K1 / K2 / the sum from the slice_frame0 layout,
+     their launches summed over the slice, reuse, overlap, cli and raw
+     paths, K3 from the bench scene);
 then, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, when there is no CUDA device or
@@ -126,6 +144,20 @@ BWD_FIELD_TOL = 5e-5        # per-Gaussian gradient, normalized per field
 #                             (the JAX package's oracle-vs-Pallas gate)
 GN_MIN_WEIGHT = 64.0        # flow_pnp_refine's degenerate-frame guard
 
+# What each kernel of the training path replaces: K1, K2, and the
+# per-Gaussian sum after K2 (the reduction of _composite_bwd).
+MAIN_PATH_REPLACES = ("freesurgs_tpu/ops/raster_pallas.py:307",
+                      "freesurgs_tpu/ops/raster_pallas.py:415",
+                      "freesurgs_tpu/ops/raster_pallas.py:737")
+
+
+def launch_counts(fwd: int, bwd: int) -> dict[str, int]:
+    """The compositing kernels' launches for ``fwd`` forward and ``bwd``
+    backward renders: each backward launches K2, then the per-Gaussian
+    sum."""
+    return {"composite_fwd": fwd, "composite_bwd": bwd,
+            "gaussian_grad_sum": bwd}
+
 
 def phase(name: str, t0: float, **kw) -> None:
     print(json.dumps({"phase": name, "seconds": round(time.time() - t0, 3),
@@ -167,6 +199,16 @@ def fwd_bytes(m: int, nt: int, gx: int, gy: int, bin_px: int) -> int:
     return 4 * (10 * m + m + 3 * nt) + 8 * gy * bin_px * gx * bin_px * 4
 
 
+def normalized_field_err(got, want) -> list[float]:
+    """Per field: the largest |got - want| over Gaussians, over the
+    largest |want|."""
+    err = []
+    for f in range(got.shape[1]):
+        scale = max(float(want[:, f].abs().max()), 1e-12)
+        err.append(float((got[:, f] - want[:, f]).abs().max()) / scale)
+    return err
+
+
 def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
                   n: int) -> dict:
     """K1 and K2 on one layout of binned records: each against its plain
@@ -199,43 +241,73 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
     gout[7] = 0.0
     gout[:, H:, :] = 0.0
     gout[:, :, W:] = 0.0
+    order, seg = bins.sum_order, bins.sum_start
     dfeat_k = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k,
                                gout, gx, gy)
     dfeat_k2 = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k,
                                 gout, gx, gy)
+    # the per-Gaussian sums of both launches, by the fixed-order kernel
+    gk = rc.gaussian_grad_sum(dfeat_k, order, seg)
+    gk2 = rc.gaussian_grad_sum(dfeat_k2, order, seg)
     torch.cuda.synchronize()
     deterministic = torch.equal(dfeat_k, dfeat_k2)
     if not deterministic:
         fails.append("K2: two launches on the same inputs differ")
-    del dfeat_k2
+    sums_deterministic = torch.equal(gk, gk2)
+    if not sums_deterministic:
+        fails.append("K2 + gaussian_grad_sum: the per-Gaussian sums of two "
+                     "launches differ")
+    del dfeat_k2, gk2
+    # the sum kernel against its plain version (the same order: bitwise)
+    g_plain = rc.gaussian_grad_sum_plain(dfeat_k, order, seg)
+    sum_err = float((gk - g_plain).abs().max())
+    sum_bitwise = torch.equal(gk, g_plain)
+    if not sum_bitwise:
+        fails.append(f"gaussian_grad_sum differs from its plain version by "
+                     f"{sum_err}")
+    del g_plain
     dfeat_p = rc.composite_bwd_plain(feat, rect, starts, counts, gout, gx, gy)
     torch.cuda.synchronize()
     inst_err = float((dfeat_k - dfeat_p).abs().max())
     inst_scale = float(dfeat_p.abs().max())
-
-    def per_gaussian(d):
-        return torch.zeros(n + 1, rc.N_FIELD, device=dev).index_add_(
-            0, gidx, d.T)[:n]
-
-    gk, gp = per_gaussian(dfeat_k), per_gaussian(dfeat_p)
-    field_err = []
-    for f in range(rc.N_FIELD):
-        scale = max(float(gp[:, f].abs().max()), 1e-12)
-        field_err.append(float((gk[:, f] - gp[:, f]).abs().max()) / scale)
+    gp = rc.gaussian_grad_sum_plain(dfeat_p, order, seg)
+    field_err = normalized_field_err(gk, gp)
     if not max(field_err) <= BWD_FIELD_TOL:
         fails.append(f"K2: normalized per-Gaussian gradient err {field_err}")
+    # a witness independent of the sum layout built on the card: its runs
+    # hold exactly the non-padding slots, and the kernel's sums agree with
+    # index_add_ over gather_idx
+    held = gidx[order][:int(seg[-1])]
+    layout_ok = torch.equal(held, torch.sort(gidx[gidx < n]).values)
+    if not layout_ok:
+        fails.append("sum layout: its runs are not the non-padding slots "
+                     "of gather_idx grouped by Gaussian")
+    g_lib = torch.zeros(n + 1, rc.N_FIELD, device=dev).index_add_(
+        0, gidx, dfeat_k.T)[:n]
+    lib_err = normalized_field_err(gk, g_lib)
+    if not max(lib_err) <= BWD_FIELD_TOL:
+        fails.append(f"gaussian_grad_sum vs index_add_: normalized err "
+                     f"{lib_err}")
+    del held, g_lib
     phase("parity", t0, layout=layout, instances=m, tiles=gx * gy,
           fwd_max_abs_err_per_channel=ch_err, fwd_stop_index_diff=stop_diff,
           keff_diff=keff_diff, bwd_max_abs_err_per_instance=inst_err,
           bwd_max_abs_per_instance=inst_scale,
           bwd_normalized_err_per_field=field_err,
           bwd_bitwise_deterministic=deterministic,
+          per_gaussian_sums_bitwise_deterministic=sums_deterministic,
+          gaussian_grad_sum_vs_plain_max_abs_err=sum_err,
+          sum_layout_is_gather_idx_grouped=layout_ok,
+          gaussian_grad_sum_vs_index_add_normalized_err_per_field=lib_err,
           tolerances={"fwd_channel": FWD_CHANNEL_TOL,
                       "fwd_stop_frac": FWD_STOP_DIFF_FRAC,
                       "bwd_field": BWD_FIELD_TOL,
-                      "bwd_repeat": "bitwise equal"})
+                      "bwd_repeat": "bitwise equal",
+                      "per_gaussian_sum_repeat": "bitwise equal",
+                      "gaussian_grad_sum_vs_plain": "bitwise equal",
+                      "gaussian_grad_sum_vs_index_add_": BWD_FIELD_TOL})
     check(not fails, f"{layout}: " + "; ".join(fails))
-    del dfeat_k, dfeat_p, gk, gp, out_p
+    del dfeat_p, gk, gp, out_p
 
     t0 = time.time()
     ms_fwd = cuda_ms(lambda: rc.composite_fwd(feat, rect, starts, counts,
@@ -250,6 +322,20 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
         feat, rect, starts, counts, gx, gy), iters=3, warmup=1)
     plain_bwd = cuda_ms(lambda: rc.composite_bwd_plain(
         feat, rect, starts, counts, gout, gx, gy), iters=3, warmup=1)
+    # the per-Gaussian sum: kernel, plain version, and index_add_ (the one
+    # PyTorch call that computes it, with atomics: the library yardstick)
+    ms_sum = cuda_ms(lambda: rc.gaussian_grad_sum(dfeat_k, order, seg),
+                     iters=20)
+    plain_sum = cuda_ms(lambda: rc.gaussian_grad_sum_plain(dfeat_k, order,
+                                                           seg),
+                        iters=3, warmup=1)
+    lib_sum = cuda_ms(lambda: torch.zeros(n + 1, rc.N_FIELD, device=dev)
+                      .index_add_(0, gidx, dfeat_k.T), iters=20)
+    del dfeat_k
+    run_slots = int(seg[-1])
+    sum_bytes = 4 * rc.N_FIELD * run_slots + 4 * run_slots + 4 * (n + 1) \
+        + 4 * rc.N_FIELD * n
+    sum_ops = float(rc.N_FIELD * run_slots)
     # the pairs these records need, by kind, and the slots walked (every
     # pixel of a tile against its instances up to keff) for comparison
     pairs = rc.composite_pair_counts(feat, rect, starts, counts, gx)
@@ -262,13 +348,17 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
     f_bytes = fwd_bytes(m, nt, gx, gy, rc.BIN)
     bwd_bytes = 4 * (2 * rc.N_FIELD * m + m + 3 * nt) + 2 * img * 7 // 8
     rows = {}
-    for name, ms, pms, ops, nbytes, err in (
-            ("composite_fwd", ms_fwd, plain_fwd, fwd_ops, f_bytes, fwd_err),
+    for name, ms, pms, ops, nbytes, err, lib in (
+            ("composite_fwd", ms_fwd, plain_fwd, fwd_ops, f_bytes, fwd_err,
+             None),
             ("composite_bwd", ms_bwd, plain_bwd, bwd_ops, bwd_bytes,
-             inst_err)):
+             inst_err, None),
+            ("gaussian_grad_sum", ms_sum, plain_sum, sum_ops, sum_bytes,
+             sum_err, lib_sum)):
         b_ms, b_by = bound(ops, nbytes)
         rows[name] = {"ms": ms, "plain_ms": pms, "bound_ms": b_ms,
-                      "bound_by": b_by, "max_abs_err": err}
+                      "bound_by": b_by, "max_abs_err": err,
+                      "library_ms": lib}
     phase("timing", t0, layout=layout, instances=m, keff_sum=int(keff_k.sum()),
           pairs=pairs, pixel_slots_to_keff=slots, fwd_ops=fwd_ops,
           bwd_ops=bwd_ops, fwd_bytes=f_bytes, bwd_bytes=bwd_bytes,
@@ -278,8 +368,13 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
           bwd_bound_ms=rows["composite_bwd"]["bound_ms"],
           fwd_share_of_bound=rows["composite_fwd"]["bound_ms"] / ms_fwd,
           bwd_share_of_bound=rows["composite_bwd"]["bound_ms"] / ms_bwd,
+          sum_ms=ms_sum, sum_plain_ms=plain_sum, sum_index_add_ms=lib_sum,
+          sum_bytes=sum_bytes, sum_run_slots=run_slots,
+          sum_bound_ms=rows["gaussian_grad_sum"]["bound_ms"],
+          sum_share_of_bound=rows["gaussian_grad_sum"]["bound_ms"] / ms_sum,
           library_ms=None,
-          library_note="no single PyTorch call computes this function")
+          library_note="no single PyTorch call computes K1 or K2; "
+                       "index_add_ computes the per-Gaussian sum")
     return rows
 
 
@@ -604,8 +699,7 @@ def run_slice(dev, results, ckpt_root: Path):
           psnr_frame0_end_of_run=psnr_end,
           global_losses=[h["loss"] for h in glob], overflow_max=overflow,
           launches=launches,
-          expected_launches={"composite_fwd": exp_fwd,
-                             "composite_bwd": exp_bwd},
+          expected_launches=launch_counts(exp_fwd, exp_bwd),
           binnings=bins, binnings_per_render=bins / exp_fwd,
           densify_events=densify_events, opacity_resets=resets,
           sh_degree=tr.active_sh_degree,
@@ -637,7 +731,7 @@ def run_slice(dev, results, ckpt_root: Path):
           "the restored Trainer differs from the saved one")
     check(done_before == 40 and fresh._global_done == 50,
           f"global counter {done_before} -> {fresh._global_done}")
-    check(launches == {"composite_fwd": exp_fwd, "composite_bwd": exp_bwd},
+    check(launches == launch_counts(exp_fwd, exp_bwd),
           f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
     # every render bins, and so does render_records
     check(bins == exp_fwd + 1, f"binnings {bins} != {exp_fwd} renders + 1")
@@ -654,10 +748,8 @@ def run_slice(dev, results, ckpt_root: Path):
         "source": f"freesurgs_tpu_torch/csrc/{name}.cu", "replaces": rep,
         "launches": launches[name], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None}
-        for (name, r), rep in zip(rows.items(), (
-            "freesurgs_tpu/ops/raster_pallas.py:307",
-            "freesurgs_tpu/ops/raster_pallas.py:415"))]
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for (name, r), rep in zip(rows.items(), MAIN_PATH_REPLACES)]
     return {"progressive_iterations_per_s": iters / prog_seconds,
             "global_iterations_per_s_with_val_and_ckpt": 40 / global_seconds,
             "resumed_global_iterations_per_s": 10 / resumed_seconds,
@@ -940,8 +1032,7 @@ def run_reuse(dev, slice_summary: dict):
         global_seconds=global_seconds, global_iterations=40,
         global_iterations_per_s_with_pose_ba=40 / global_seconds,
         launches=launches,
-        expected_launches={"composite_fwd": exp_fwd,
-                           "composite_bwd": exp_bwd},
+        expected_launches=launch_counts(exp_fwd, exp_bwd),
         binnings=bins, expected_binnings=exp_bins,
         binnings_per_render=bins / exp_fwd,
         keyframe_views={h["frame"]: h["keyframe_views"] for h in prog
@@ -957,7 +1048,7 @@ def run_reuse(dev, slice_summary: dict):
         slice_same_call=slice_summary)
     check(all(math.isfinite(x) for x in losses + [psnr_end]),
           f"non-finite loss or PSNR {losses} {psnr_end}")
-    check(launches == {"composite_fwd": exp_fwd, "composite_bwd": exp_bwd},
+    check(launches == launch_counts(exp_fwd, exp_bwd),
           f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
     check(bins == exp_bins, f"binnings {bins} != the schedule's {exp_bins}")
     check(psnr_cached > psnr_before,
@@ -1014,17 +1105,315 @@ def run_overlap(dev):
           psnr_frame0_before=psnr_before,
           psnr_frame0_after_mapping=psnr_cached,
           launches=launches,
-          expected_launches={"composite_fwd": exp_fwd,
-                             "composite_bwd": exp_bwd},
+          expected_launches=launch_counts(exp_fwd, exp_bwd),
           binnings=bins, overflow_max=overflow)
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(psnr_cached > psnr_before,
           f"frame-0 PSNR did not improve: {psnr_before} -> {psnr_cached}")
-    check(launches == {"composite_fwd": exp_fwd, "composite_bwd": exp_bwd},
+    check(launches == launch_counts(exp_fwd, exp_bwd),
           f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
     check(bins == exp_fwd, f"binnings {bins} != renders {exp_fwd}")
     check(overflow == 0, f"instance overflow {overflow}")
     return launches
+
+
+# The raw phase: scripts/make_fullres_dataset.py --nonrigid's recipe, cut
+# to 6 frames (PnP initializes frames 2-5). Its frames move ~50-100 px a
+# frame at 1280x1024, where the producer's default 5-level pyramid (coarsest
+# 80x64) cannot follow them (median end-point error ~ the motion itself, in
+# both packages): the phase produces with 8 levels (coarsest 10x8), the
+# depth that keeps the coarsest-level motion near the JAX test's 4 levels
+# at 96 px wide, and reports the default's error on the first pair.
+RAW_FRAMES = 6
+RAW_LEVELS = 8
+HS_TOL = 1e-3               # flow, card vs CPU (tests/test_torch_producers)
+DISP_RTOL = 1e-5            # disparity, card vs CPU
+PNP_TOL = 0.01              # tests/test_pose_utils.py's PnP gate
+
+
+def raw_scene(dev):
+    from freesurgs_tpu_torch.data.synthetic import make_nonrigid_scene
+    return make_nonrigid_scene(
+        num_frames=RAW_FRAMES, n_gaussians=20000, height=1024, width=1280,
+        seed=7, scale_range=(0.004, 0.012), patch_amp=0.02, spec_speed=0.02,
+        device=dev)
+
+
+def textured(color):
+    """Pixels with image gradient (the JAX producer test's mask): a
+    photometric flow is underdetermined elsewhere."""
+    import numpy as np
+    gx, gy = np.gradient(color.mean(0))
+    return np.hypot(gx, gy) > 0.01
+
+
+def rank_corr(a, b) -> float:
+    """Spearman's rank correlation of two arrays."""
+    import numpy as np
+
+    def ranks(x):
+        r = np.empty(x.size)
+        r[np.argsort(x.ravel(), kind="stable")] = np.arange(x.size)
+        return r
+    return float(np.corrcoef(ranks(a), ranks(b))[0, 1])
+
+
+def pose_errors(w2c, gt) -> dict:
+    """Translation error (norm), largest rotation-matrix entry error and
+    rotation angle (degrees) of a w2c against the ground truth."""
+    import torch
+    w2c, gt = w2c.double().cpu(), gt.double().cpu()
+    dR = w2c[:3, :3].T @ gt[:3, :3]
+    cosang = float((torch.trace(dR) - 1.0) / 2.0)
+    return {"trans_err": float(torch.linalg.norm(w2c[:3, 3] - gt[:3, 3])),
+            "rot_entry_err": float((w2c[:3, :3] - gt[:3, :3]).abs().max()),
+            "rot_err_deg": math.degrees(math.acos(max(-1.0,
+                                                      min(1.0, cosang))))}
+
+
+def render_schedule(cfg, seq) -> list[str]:
+    """What each forward render of ``progressive_run`` is, in order (as
+    ``progressive_counts`` counts them), after one render of frame 0."""
+    train = set(int(t) for t in seq.i_train)
+    out = ["frame 0 before training"]
+    for t in range(int(seq.colors.shape[0])):
+        if t > 0:
+            out += [f"frame {t} tracking iteration {k}"
+                    for k in range(cfg.tracking_iters)]
+        if t not in train:
+            out.append(f"frame {t} cache render")
+        elif t == 0:
+            out += [f"frame 0 mapping iteration {k}"
+                    for k in range(cfg.first_frame_mapping_iters)]
+        else:
+            out += [f"frame {t} mapping iteration {k} view {v}"
+                    for k in range(cfg.mapping_iters) for v in (0, 1)]
+    return out
+
+
+def raw_training_run(dev, seq, cfg):
+    """One Trainer(pose_init="pnp") progressive stage on ``seq``, counters
+    reset just before it and read just after. Records, without changing
+    the run, each forward render's sum (float64, on the device) and, at
+    each PnP init, the constant-velocity init from the same poses."""
+    from unittest import mock
+
+    import torch
+    from freesurgs_tpu_torch.models import pose as posemod
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.train.loop import Trainer
+
+    logs = []
+    tr = Trainer(seq, cfg, pose_init="pnp", log_fn=logs.append, device=dev,
+                 validation_every=0, **SLICE_TRAINER)
+    inits, sums, pnp_s = {}, [], []
+    real_pnp, real_fwd = posemod.pnp_pose_init, rc.composite_fwd
+
+    def pnp_spy(poses, t, *a, **kw):
+        cv = posemod.const_velocity_init(poses, t)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new = real_pnp(poses, t, *a, **kw)
+        torch.cuda.synchronize()
+        pnp_s.append(time.perf_counter() - t1)
+        inits[t] = {"pnp": new.w2c(t).detach(),
+                    "const_velocity": cv.w2c(t).detach()}
+        return new
+
+    def fwd_spy(*a):
+        out = real_fwd(*a)
+        sums.append(out[0].sum(dtype=torch.float64))
+        return out
+
+    with mock.patch.object(posemod, "pnp_pose_init", pnp_spy), \
+            mock.patch.object(rc, "composite_fwd", fwd_spy):
+        rc.reset_launches()
+        t_run = time.time()
+        out_before = tr.render_frame(0)
+        tr.progressive_run()
+        torch.cuda.synchronize()
+        seconds = time.time() - t_run
+        launches = dict(rc.LAUNCHES)
+    psnr_before = psnr(out_before["render"], tr.colors[0])
+    return {"trainer": tr, "inits": inits, "sums": torch.stack(sums),
+            "pnp_seconds": pnp_s, "seconds": seconds, "launches": launches,
+            "psnr_before": psnr_before, "logs": logs}
+
+
+def run_raw(dev, smi: str) -> dict:
+    """From raw frames at 1280x1024: the non-rigid scene written as a
+    SCARED directory, its flow/ and monodep/ deleted and produced again by
+    ``cli.produce_inputs`` on the card (frames 0-1 also on the CPU, the
+    plain path), loaded, and trained by a Trainer(pose_init="pnp")'s
+    progressive stage, twice. Returns the launches of the two runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from freesurgs_tpu_torch.cli import produce_inputs
+    from freesurgs_tpu_torch.data.flow_hs import hs_flow
+    from freesurgs_tpu_torch.data.scared import (load_scared,
+                                                 save_synthetic_as_scared)
+    from freesurgs_tpu_torch.models import pose as posemod
+    from freesurgs_tpu_torch.train.steps import TrainConfig
+
+    t0 = time.time()
+    steps, res = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, root01 = Path(tmp) / "raw", Path(tmp) / "raw01"
+        t1 = time.time()
+        scene, aux = raw_scene(dev)
+        torch.cuda.synchronize()
+        steps["scene"] = time.time() - t1
+        t1 = time.time()
+        save_synthetic_as_scared(scene, str(root))
+        for sub in ("flow", "monodep"):
+            shutil.rmtree(root / sub)
+        steps["write_frames"] = time.time() - t1
+
+        # 1. the inputs, produced on the card
+        t1 = time.time()
+        prod = produce_inputs.produce(str(root), levels=RAW_LEVELS,
+                                      device=dev, log=lambda s: None)
+        steps["produce_card"] = time.time() - t1
+        check(prod["flow_pairs"] == RAW_FRAMES - 1
+              and prod["depth_maps"] == RAW_FRAMES, f"produced {prod}")
+        pngs = sorted((root / "input").glob("*.png"))
+        stems = [p.name.split(".")[0] for p in pngs]
+
+        def npz(path):
+            with np.load(path) as z:
+                return z["pred"]
+
+        fws = [npz(root / "flow" / f"flow_fw_{s}.npz") for s in stems[:-1]]
+        colors = scene.colors.cpu().numpy()
+        epe, gate = [], []
+        for t, fw in enumerate(fws):
+            gt = scene.flows_fw[t].cpu().numpy()
+            tex = textured(colors[t])
+            e = np.hypot(*(fw - gt))[tex]
+            gt_med = float(np.median(np.hypot(*gt)[tex]))
+            epe.append({"pair": t, "median_epe_px": float(np.median(e)),
+                        "median_gt_px": gt_med,
+                        "gate_px": max(0.5, 0.5 * gt_med),
+                        "textured_share": float(tex.mean())})
+            gate.append(epe[-1]["median_epe_px"] < epe[-1]["gate_px"])
+        # the producer's default pyramid on the first pair, reported
+        frames = produce_inputs.load_frames(str(root))[0]
+        f5 = hs_flow(torch.from_numpy(frames[0]).to(dev),
+                     torch.from_numpy(frames[1]).to(dev)).cpu().numpy()
+        gt0 = scene.flows_fw[0].cpu().numpy()
+        epe_default = float(np.median(np.hypot(*(f5 - gt0))[
+            textured(colors[0])]))
+        disp_rho = [rank_corr(npz(root / "monodep" / f"depth_{s}.npz"),
+                              1.0 / scene.depths[t].cpu().numpy())
+                    for t, s in enumerate(stems)]
+        res.update(flow_seconds_per_field=[x / 2 for x in
+                                           prod["flow_seconds"]],
+                   flow_levels=RAW_LEVELS, hs_epe=epe,
+                   hs_epe_pair0_default_levels_5=epe_default,
+                   disparity_rank_corr_with_inverse_depth=disp_rho)
+        check(all(gate), f"Horn-Schunck end-point error over the gate: {epe}")
+
+        # 2. frames 0-1 on the CPU (the plain path): the same arrays
+        (root01 / "input").mkdir(parents=True)
+        for p in pngs[:2]:
+            shutil.copy(p, root01 / "input" / p.name)
+        t1 = time.time()
+        produce_inputs.produce(str(root01), levels=RAW_LEVELS, device="cpu",
+                               log=lambda s: None)
+        steps["produce_cpu_frames_0_1"] = time.time() - t1
+        diff = {}
+        for kind in ("flow_fw", "flow_bw"):
+            a = npz(root / "flow" / f"{kind}_{stems[0]}.npz")
+            b = npz(root01 / "flow" / f"{kind}_{stems[0]}.npz")
+            diff[kind] = float(np.abs(a - b).max())
+        a = npz(root / "monodep" / f"depth_{stems[0]}.npz")
+        b = npz(root01 / "monodep" / f"depth_{stems[0]}.npz")
+        diff["disparity_rel"] = float(np.max(np.abs(a - b) / np.abs(b)))
+        res["card_vs_cpu_frames_0_1"] = diff
+        check(diff["flow_fw"] <= HS_TOL and diff["flow_bw"] <= HS_TOL
+              and diff["disparity_rel"] <= DISP_RTOL,
+              f"the card's inputs differ from the CPU's: {diff}")
+
+        # 3. PnP on the analytic flow and the rendered depth (frame 2)
+        gtp = posemod.PoseTable(quats=scene.gt_quats.clone(),
+                                trans=scene.gt_trans.clone())
+        start = posemod.copy_previous_init(gtp, 2)
+        pnp2 = posemod.pnp_pose_init(start, 2, scene.flows_fw[1],
+                                     scene.depths[1], scene.gt_w2c[1],
+                                     scene.cam, seed=2)
+        err2 = pose_errors(pnp2.w2c(2), scene.gt_w2c[2])
+        res["pnp_analytic_frame2"] = err2
+        check(err2["trans_err"] < PNP_TOL and err2["rot_entry_err"] < PNP_TOL,
+              f"PnP on the analytic flow missed frame 2: {err2}")
+
+        # 4. the training job from the produced inputs, twice
+        t1 = time.time()
+        seq = load_scared(str(root), cache=None)
+        steps["load"] = time.time() - t1
+    cfg = TrainConfig(**SLICE_CFG)
+    runs = [raw_training_run(dev, seq, cfg) for _ in range(2)]
+    tr = runs[0]["trainer"]
+    exp_fwd, exp_bwd, iters = progressive_counts(cfg, seq)
+    exp = launch_counts(exp_fwd + 1, exp_bwd)
+    prog = [h for h in tr.history if h["stage"] == "progressive"]
+    losses = [float(h[k]) for h in prog
+              for k in ("loss", "rgb_loss", "flow_loss") if k in h]
+    psnr_cached = psnr(tr.state.pred_colors[0].float(), tr.colors[0])
+    inits = {t: {k: pose_errors(w, scene.gt_w2c[t]) for k, w in v.items()}
+             for t, v in runs[0]["inits"].items()}
+    # the two runs: the first forward render whose sum differs, and the
+    # final state
+    a, b = runs[0]["sums"], runs[1]["sums"]
+    differ = (a != b).nonzero()
+    schedule = render_schedule(cfg, seq)
+    first = (None if a.shape != b.shape or len(differ) == 0
+             else schedule[int(differ[0])])
+    t2 = runs[1]["trainer"]
+    same_state = (torch.equal(tr.poses.quats, t2.poses.quats)
+                  and torch.equal(tr.poses.trans, t2.poses.trans)
+                  and all(torch.equal(getattr(tr.field, k),
+                                      getattr(t2.field, k))
+                          for k in ("means", "quats", "log_scales",
+                                    "logit_opacity", "sh_dc", "sh_rest",
+                                    "active")))
+    # the rigidity mask of each frame pair (t-2 -> t-1) on the run's poses
+    # against the scene's non-rigid pixels at t-2
+    mask_scores = []
+    for t in range(2, RAW_FRAMES):
+        pred = (tr._rigid_mask(t) == 0).cpu().numpy()
+        gt = aux["nonrigid_mask"][t - 2].cpu().numpy()
+        hit = float((pred & gt).sum())
+        mask_scores.append({"pair": [t - 2, t - 1],
+                            "precision": hit / max(float(pred.sum()), 1.0),
+                            "recall": hit / max(float(gt.sum()), 1.0),
+                            "excluded_share": float(pred.mean()),
+                            "nonrigid_share": float(gt.mean())})
+    phase("raw", t0, nvidia_smi=smi, step_seconds=steps, **res,
+          progressive_seconds=[r["seconds"] for r in runs],
+          progressive_iterations_per_s=[iters / r["seconds"] for r in runs],
+          pnp_init_seconds=runs[0]["pnp_seconds"], pnp_vs_const_velocity={
+              str(t): v for t, v in sorted(inits.items())},
+          psnr_frame0_before=runs[0]["psnr_before"],
+          psnr_frame0_after_mapping=psnr_cached,
+          rigidity_mask=mask_scores,
+          run_to_run={"renders_compared": int(a.numel()),
+                      "first_differing_render": first,
+                      "final_state_bitwise_equal": same_state},
+          launches=[r["launches"] for r in runs], expected_launches=exp,
+          test_frames=[int(t) for t in seq.i_test],
+          log=runs[0]["logs"])
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(psnr_cached > runs[0]["psnr_before"],
+          f"frame-0 PSNR did not improve: {runs[0]['psnr_before']} -> "
+          f"{psnr_cached}")
+    check(sorted(inits) == list(range(2, RAW_FRAMES)),
+          f"PnP initialized frames {sorted(inits)}")
+    for r in runs:
+        check(r["launches"] == exp,
+              f"launches {r['launches']} != renders made {exp}")
+    return {"raw": runs[0]["launches"], "raw_repeat": runs[1]["launches"]}
 
 
 # The cli phase's depth cut, through --train_override: the slice's, with
@@ -1218,9 +1607,9 @@ def run_cli(dev, smi: str, slice_summary: dict) -> dict:
         exp_fwd, exp_bwd, iters = progressive_counts(cfg, cached)
         n_test = len(cached.i_test)
         compare = [t for t in cached.i_train if t % 25 == 0]
-        exp = {"composite_fwd": exp_fwd + cfg.global_iters + n_test
-               + len(compare) + n_test,
-               "composite_bwd": exp_bwd + cfg.global_iters}
+        exp = launch_counts(exp_fwd + cfg.global_iters + n_test
+                            + len(compare) + n_test,
+                            exp_bwd + cfg.global_iters)
         check(launches["train"] == exp,
               f"cli.train launches {launches['train']} != renders {exp}")
         panels = sorted(p.name for p in (out / "panels").glob("*.png"))
@@ -1274,8 +1663,7 @@ def run_cli(dev, smi: str, slice_summary: dict) -> dict:
               + 1, f"cli.train --run_test exited {code}: {log[-2000:]}")
         check(resumed == final, f"resumed validation {resumed} != the "
               f"final one {final}")
-        check(launches["resume_validate"] == {
-            "composite_fwd": 2 * n_test, "composite_bwd": 0},
+        check(launches["resume_validate"] == launch_counts(2 * n_test, 0),
             f"resume launches {launches['resume_validate']}")
 
         # 5. cli.render over every frame
@@ -1299,12 +1687,11 @@ def run_cli(dev, smi: str, slice_summary: dict) -> dict:
         check(all(math.isfinite(printed[k]) for k in ("psnr", "ssim",
                                                       "lpips")),
               f"render metrics {printed}")
-        check(launches["render"] == {"composite_fwd": n_frames,
-                                     "composite_bwd": 0},
+        check(launches["render"] == launch_counts(n_frames, 0),
               f"render launches {launches['render']}")
         res["render_metrics"] = printed
     total = {k: sum(v[k] for v in launches.values())
-             for k in ("composite_fwd", "composite_bwd")}
+             for k in launch_counts(0, 0)}
     phase("cli", t0, nvidia_smi=smi, step_seconds=steps, launches=launches,
           **res)
     return total
@@ -1379,8 +1766,10 @@ def main() -> int:
              "reuse": run_reuse(dev, slice_summary),
              "overlap": run_overlap(dev),
              "cli": run_cli(dev, smi, slice_summary)}
-    # K1 / K2 launches: the sum over the paths, each counted alone
-    for row in results["kernels"][:2]:
+    paths.update(run_raw(dev, smi))
+    # K1 / K2 / the sum's launches: the sum over the paths, each counted
+    # alone
+    for row in results["kernels"][:len(MAIN_PATH_REPLACES)]:
         row["launches"] = sum(p[row["name"]] for p in paths.values())
     print(json.dumps({"launches_by_path": paths}), flush=True)
     print(json.dumps({"kernels": results["kernels"]}), flush=True)

@@ -5,7 +5,9 @@
   ... --run_test true                      # validation only
   ... --run_start_checkpoint <ckpt-dir>    # or "latest"
 
-The flags are the JAX CLI's (``io/config.py``). The run writes
+The flags are the JAX CLI's (``io/config.py``). ``--run_visualize true``
+without viser installed runs headless, as the JAX CLI does; with viser
+installed it raises, since the viewer is not ported. The run writes
 ``config.json``, ``metrics.jsonl``, ``panels/*.png``, ``ckpt_progressive``,
 ``ckpt_final`` and ``point_cloud.ply`` under ``--run_model_path``. It runs
 on the card; ``--run_platform cpu`` runs it on the CPU, and without a CUDA
@@ -15,6 +17,7 @@ device it fails rather than falling back.
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 import sys
 
@@ -32,8 +35,8 @@ from ..utils.logging import MetricsLogger
 def parse(argv, description: str,
           extra=None) -> tuple[Config, argparse.Namespace]:
     """The Config of ``argv`` (and the parsed namespace), refusing what the
-    port does not run: the viewer, an ``--run_impl`` other than the
-    kernels', and the card when there is none."""
+    port does not run: an ``--run_impl`` other than the kernels', and the
+    card when there is none."""
     parser = argparse.ArgumentParser(description=description)
     cfg = Config()
     add_to_parser(cfg, parser)
@@ -41,9 +44,6 @@ def parse(argv, description: str,
         extra(parser)
     args = parser.parse_args(argv)
     cfg = from_args(cfg, args)
-    if cfg.run.visualize:
-        raise NotImplementedError(
-            "--run_visualize: the viewer (viz/) is ROADMAP Queue 1 item 10")
     check_supported(cfg.train_config())
     if cfg.device() == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card; pass "
@@ -51,7 +51,20 @@ def parse(argv, description: str,
     return cfg, args
 
 
+def viser_installed() -> bool:
+    try:
+        importlib.import_module("viser")
+    except ImportError:
+        return False
+    return True
+
+
 def run(cfg: Config, logger: MetricsLogger) -> int:
+    if cfg.run.visualize:
+        if viser_installed():
+            raise NotImplementedError(
+                "--run_visualize: the viewer (viz/) is ROADMAP Queue 1 item 5")
+        logger.info("viser not installed; running headless")
     seq = load_scared(cfg.data.source_path, cfg.data.frame_start,
                       cfg.data.frame_end, cfg.data.sample_rate,
                       depth_prior=cfg.data.depth_prior)

@@ -1,21 +1,26 @@
 """PoseTable: per-frame learnable SE(3) poses, and the pose-side pieces
-(port of ``freesurgs_tpu/models/pose.py``): constant-velocity init, the
-fundamental matrix of two learned poses, the dense Sampson distance map
-and its adaptive threshold (the epipolar rigidity mask).
+(port of ``freesurgs_tpu/models/pose.py``): constant-velocity and PnP
+init, the fundamental matrix of two learned poses, the dense Sampson
+distance map and its adaptive threshold (the epipolar rigidity mask).
 
-``pnp_pose_init`` and ``flow_matches`` wait for a later slice
-(``pose_init="pnp"`` is not the default).
+``pnp_pose_init`` solves with the port's own RANSAC PnP on the device
+(``models/pnp.py``) where the JAX function calls cv2 on the host; the JAX
+function's fallback to the previous pose when cv2 is missing is not
+copied.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..core.camera import Camera, pixel_grid
 from ..core.transforms import (build_w2c, essential_from_poses,
-                               fundamental_from_essential, quat_normalize)
+                               fundamental_from_essential, quat_normalize,
+                               rotmat_to_quat)
+from .pnp import solve_pnp_ransac
 
 
 @dataclasses.dataclass
@@ -103,3 +108,64 @@ def epipolar_rigidity(poses: PoseTable, t1: int, t2: int,
 def adaptive_threshold_mask(x: torch.Tensor, factor: float = 2.0):
     """mask = x <= mean + factor * std (population std)."""
     return x <= (torch.mean(x) + factor * torch.std(x, unbiased=False))
+
+
+def flow_matches(flow_fw: torch.Tensor, cam: Camera):
+    """Dense correspondences from a forward flow (the reference's
+    ``get_matches``): (pts1 (H*W, 2), pts2 (H*W, 2), valid (H*W,)), valid
+    where the flow target lies inside the image."""
+    H, W = cam.height, cam.width
+    xg, yg = pixel_grid(H, W, device=flow_fw.device)
+    p1 = torch.stack([xg.reshape(-1), yg.reshape(-1)], dim=1)
+    p2 = p1 + torch.stack([flow_fw[0].reshape(-1), flow_fw[1].reshape(-1)],
+                          dim=1)
+    valid = ((p2[:, 0] > 0) & (p2[:, 0] < W)
+             & (p2[:, 1] > 0) & (p2[:, 1] < H))
+    return p1, p2, valid
+
+
+def pnp_pose_init(poses: PoseTable, t: int, flow_fw_prev: torch.Tensor,
+                  prev_depth: torch.Tensor, prev_w2c: torch.Tensor,
+                  cam: Camera, max_points: int = 4000,
+                  seed: int = 0) -> PoseTable:
+    """Initialize frame t by RANSAC PnP (the reference's
+    ``initialize_pose(pnp=True)`` branch, whose ``solve_pose_pnp`` the
+    reference never defines): frame t-1's pixels back-projected through
+    its rendered depth ``prev_depth`` (H, W) into its camera frame, matched
+    by ``flow_fw_prev`` (2, H, W) to pixels of frame t; at most
+    ``max_points`` of them, drawn with numpy ``default_rng(seed)`` as the
+    JAX function draws them. The relative pose composes onto ``prev_w2c``.
+    Fewer than 6 usable matches, or a failed solve, copy the previous
+    pose."""
+    p1, p2, valid = flow_matches(flow_fw_prev, cam)
+    depth = prev_depth.reshape(-1)
+    valid = valid & (depth > 0)
+    idx = np.flatnonzero(valid.cpu().numpy())
+    rng = np.random.default_rng(seed)
+    if len(idx) > max_points:
+        idx = rng.choice(idx, max_points, replace=False)
+    if len(idx) < 6:
+        return copy_previous_init(poses, t)
+
+    dev = flow_fw_prev.device
+    sel = torch.as_tensor(idx, device=dev)
+    # back-project frame t-1 pixels into its camera frame (f32, as JAX)
+    z = depth[sel].to(torch.float32)
+    x = (p1[sel, 0] - cam.cx) / cam.fx * z
+    y = (p1[sel, 1] - cam.cy) / cam.fy * z
+    obj = torch.stack([x, y, z], -1).to(torch.float64)
+    img = p2[sel].to(torch.float64)
+    K = torch.as_tensor(cam.intrinsic_matrix(), dtype=torch.float64,
+                        device=dev)
+    res = solve_pnp_ransac(obj, img, K, reproj_px=3.0, seed=seed)
+    if not res.ok:
+        return copy_previous_init(poses, t)
+
+    # rel maps cam(t-1) coordinates to cam(t): w2c_t = rel @ w2c_{t-1}
+    rel = torch.eye(4, dtype=torch.float64, device=dev)
+    rel[:3, :3] = res.R
+    rel[:3, 3] = res.t
+    new = rel @ prev_w2c.detach().to(torch.float64)
+    q = rotmat_to_quat(new[:3, :3].to(torch.float32))
+    return poses.set_frame(t, q.to(poses.quats.dtype),
+                           new[:3, 3].to(poses.trans.dtype))

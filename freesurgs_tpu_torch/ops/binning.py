@@ -56,6 +56,21 @@ class TileBins(NamedTuple):
     tile_count: torch.Tensor    # (T,) int32 real instances per tile
     num_instances: torch.Tensor  # () int32 kept instances
     overflow: torch.Tensor      # () int32 instances dropped at the cap
+    # The per-Gaussian gradient sum's fixed order (ops/raster_cuda.py):
+    sum_order: torch.Tensor     # (M,) int32 slots stably sorted by Gaussian
+    sum_start: torch.Tensor     # (n + 1,) int32 where each Gaussian's run
+    #                             of sum_order begins; [n] = first padding
+
+
+def sum_layout(gather_idx: torch.Tensor, n: int):
+    """(sum_order, sum_start) of a slot -> Gaussian map: the slots stably
+    sorted by Gaussian (each Gaussian's slots one run, in slot order) and
+    the offsets of the runs of Gaussians 0..n-1 (padding index n last).
+    Both int32; no host read."""
+    held, order = torch.sort(gather_idx, stable=True)
+    bounds = torch.arange(n + 1, dtype=held.dtype, device=held.device)
+    start = torch.searchsorted(held, bounds, out_int32=True)
+    return order.to(torch.int32), start
 
 
 def padded_layout(tile_rect: torch.Tensor, grid_x: int, grid_y: int):
@@ -132,8 +147,10 @@ def build_tile_bins(proj: ProjectedGaussians, grid_x: int, grid_y: int,
 
     fit_count = torch.minimum(torch.clamp_min(m - padded_start, 0), raw_count)
     kept = keep.sum().to(torch.int32)
+    sum_order, sum_start = sum_layout(gather_idx, n)
     return TileBins(gather_idx=gather_idx,
                     tile_start=padded_start.to(torch.int32),
                     tile_count=fit_count.to(torch.int32),
                     num_instances=kept,
-                    overflow=(total - kept).to(torch.int32))
+                    overflow=(total - kept).to(torch.int32),
+                    sum_order=sum_order, sum_start=sum_start)

@@ -17,10 +17,17 @@ Compositing output, per pixel of the bin-padded image (8, Hp, Wp):
 index (slots of the pixel's tile run up to its last composited instance),
 plus ``keff`` per tile: the CHUNKs composited before every pixel stopped.
 
-On a CUDA tensor ``composite_fwd`` / ``composite_bwd`` launch the kernels
-in ``csrc/`` (built with nvcc on first use into ``_build/``, bound with
-ctypes) and count the launch in ``LAUNCHES``; on a CPU tensor they run the
-plain versions. There is no fallback between the two.
+The backward's per-instance gradients are summed per Gaussian by
+``gaussian_grad_sum`` in a fixed order: each Gaussian's slots in ascending
+slot order, through the layout's ``sum_order`` / ``sum_start``
+(``ops/binning.py``), so training is reproducible from run to run on the
+card (``index_add_``'s float atomics were not).
+
+On a CUDA tensor ``composite_fwd`` / ``composite_bwd`` /
+``gaussian_grad_sum`` launch the kernels in ``csrc/`` (built with nvcc on
+first use into ``_build/``, bound with ctypes) and count the launch in
+``LAUNCHES``; on a CPU tensor they run the plain versions. There is no
+fallback between the two.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ BIN = 32           # the kernels' bin tile side
 NPIX = BIN * BIN
 
 # Kernel launches since the last reset, counted where each kernel launches.
-LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0}
+LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "gaussian_grad_sum": 0}
 # Binner runs since the last reset, counted where the binner runs
 # (``_bin_state``): a render that reuses a carried layout does not count.
 BINS = {"build_tile_bins": 0}
@@ -323,6 +330,22 @@ def composite_bwd_plain(feat: torch.Tensor, rect: torch.Tensor,
     return dfeat
 
 
+def gaussian_grad_sum_plain(dfeat: torch.Tensor, order: torch.Tensor,
+                            start: torch.Tensor) -> torch.Tensor:
+    """Plain per-Gaussian sum: (n, 10), row g the sum of dfeat (10, M) over
+    Gaussian g's slots ``order[start[g]:start[g + 1]]``, added front to
+    back from 0 (rank r of every run in one step), the kernel's order."""
+    n = start.shape[0] - 1
+    vals = dfeat.T[order]                                 # (M, 10)
+    st = start.to(torch.int64)
+    lens = st[1:] - st[:-1]
+    out = dfeat.new_zeros(n, N_FIELD)
+    for r in range(int(lens.max()) if n else 0):
+        g = torch.nonzero(lens > r).squeeze(1)
+        out[g] += vals[st[g] + r]
+    return out
+
+
 def composite_pair_counts(feat: torch.Tensor, rect: torch.Tensor,
                           starts: torch.Tensor, counts: torch.Tensor,
                           grid_x: int, *, stop: bool = True,
@@ -362,7 +385,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNEL_SOURCES = {"composite_fwd": "composite_fwd.cu",
                   "composite_bwd": "composite_bwd.cu",
-                  "composite_fwd_ablate": "composite_fwd_ablate.cu"}
+                  "composite_fwd_ablate": "composite_fwd_ablate.cu",
+                  "gaussian_grad_sum": "gaussian_grad_sum.cu"}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict = {}          # symbol -> bound ctypes function
 
@@ -417,10 +441,10 @@ def build_kernels() -> dict[str, str]:
     return reports
 
 
-def kernel_fn(lib_name: str, symbol: str, n_ptr: int):
+def kernel_fn(lib_name: str, symbol: str, n_ptr: int, n_int: int = 3):
     """The C entry point ``symbol`` of library ``lib_name`` (built first if
-    missing): ``n_ptr`` pointers, then M, grid_x, num_tiles and the
-    stream."""
+    missing): ``n_ptr`` pointers, then ``n_int`` ints (the compositing
+    kernels': M, grid_x, num_tiles) and the stream."""
     fn = _FNS.get(symbol)
     if fn is None:
         lib = _LIBS.get(lib_name)
@@ -431,7 +455,7 @@ def kernel_fn(lib_name: str, symbol: str, n_ptr: int):
             lib = _LIBS[lib_name] = ctypes.CDLL(str(path))
         fn = getattr(lib, symbol)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
         _FNS[symbol] = fn
     return fn
@@ -526,6 +550,32 @@ def composite_bwd(feat: torch.Tensor, rect: torch.Tensor,
     return dfeat
 
 
+def gaussian_grad_sum(dfeat: torch.Tensor, order: torch.Tensor,
+                      start: torch.Tensor) -> torch.Tensor:
+    """Per-Gaussian sum of per-instance gradients, in a fixed order:
+    (n, 10) from dfeat (10, M), order (M,) and start (n + 1,), both int32
+    (``binning.sum_layout``)."""
+    if not dfeat.is_cuda:
+        return gaussian_grad_sum_plain(dfeat, order, start)
+    dev = dfeat.device
+    m = dfeat.shape[1]
+    n = start.shape[0] - 1
+    _check(dfeat, "dfeat", torch.float32, (N_FIELD, m), dev)
+    _check(order, "order", torch.int32, (m,), dev)
+    _check(start, "start", torch.int32, (n + 1,), dev)
+    out = torch.empty(n, N_FIELD, dtype=torch.float32, device=dev)
+    fn = kernel_fn("gaussian_grad_sum", "gaussian_grad_sum", 4, n_int=2)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(dfeat.data_ptr(), order.data_ptr(), start.data_ptr(),
+                 out.data_ptr(), n, m, stream)
+    if err != 0:
+        raise RuntimeError(f"gaussian_grad_sum launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["gaussian_grad_sum"] += 1
+    return out
+
+
 # ------------------------------------------------------------- autograd
 
 class Composite(torch.autograd.Function):
@@ -538,31 +588,28 @@ class Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mean2d, conic, rgbz, opacity, rect16, gather_idx,
-                tile_start, tile_count, grid_x, grid_y):
+                tile_start, tile_count, sum_order, sum_start, grid_x,
+                grid_y):
         feat, rect = _records(mean2d, conic, rgbz, opacity, rect16,
                               gather_idx)
         out, keff = composite_fwd(feat, rect, tile_start, tile_count,
                                   grid_x, grid_y)
         ctx.save_for_backward(feat, rect, tile_start, tile_count, keff, out,
-                              gather_idx)
+                              sum_order, sum_start)
         ctx.grid = (grid_x, grid_y)
-        ctx.n = mean2d.shape[0]
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        feat, rect, starts, counts, keff, out, gather_idx = ctx.saved_tensors
+        (feat, rect, starts, counts, keff, out, sum_order,
+         sum_start) = ctx.saved_tensors
         gx, gy = ctx.grid
         dfeat = composite_bwd(feat, rect, starts, counts, keff, out,
                               gout.contiguous(), gx, gy)
-        n = ctx.n
-        # Per-Gaussian sum; padding slots carry index n, whose row is
-        # dropped. On the card index_add_ accumulates with float atomics,
-        # so the summation order (not the per-instance values) varies.
-        dsrc = feat.new_zeros(n + 1, N_FIELD).index_add_(
-            0, gather_idx, dfeat.T)[:n]
+        # per-Gaussian sum in a fixed order; padding slots are in no run
+        dsrc = gaussian_grad_sum(dfeat, sum_order, sum_start)
         return (dsrc[:, 0:2], dsrc[:, 2:5], dsrc[:, 6:10], dsrc[:, 5],
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 # ------------------------------------------------------ the layout carry
@@ -658,7 +705,8 @@ def rasterize(proj: ProjectedGaussians, rgbz: torch.Tensor,
         overflow = _reuse_overflow(proj_b, cfg)
     out = Composite.apply(proj_b.mean2d, proj_b.conic, rgbz, opacity,
                           proj_b.tile_rect, bins.gather_idx, bins.tile_start,
-                          bins.tile_count, cfg.grid_x, cfg.grid_y)
+                          bins.tile_count, bins.sum_order, bins.sum_start,
+                          cfg.grid_x, cfg.grid_y)
     out = out[:, :cfg.height, :cfg.width]
     return {"image": out[0:6], "final_T": out[6], "overflow": overflow,
             "num_instances": bins.num_instances, "bins": bins}

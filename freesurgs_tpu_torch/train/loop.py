@@ -17,8 +17,11 @@ With ``panel_fn`` the Trainer emits labelled panels (render | gt | depth |
 monodep | flow) every ``panel_every`` frames of the progressive stage and
 for every test view it validates; each panel is one more render.
 
-PnP pose init and the viewer wait for a later slice (ROADMAP.md, Queue 1)
-and raise when asked for.
+``pose_init="pnp"`` initializes each frame t > 1 by RANSAC PnP on the
+flow matches against frame t-1's cached depth (``models/pose.py``) instead
+of the constant-velocity extrapolation. The viewer waits for a later slice
+(ROADMAP.md, Queue 1 item 5) and raises when asked for. A render that drops
+instances at the ``max_instances_cap`` cap is logged as a warning.
 """
 
 from __future__ import annotations
@@ -76,8 +79,8 @@ class Trainer:
     log_fn: Any = print
     checkpoint_dir: str | None = None     # periodic global-stage saves
     checkpoint_every: int = 5000
-    viewer: Any = None                    # ROADMAP Queue 1 item 10
-    pose_init: str = "const_velocity"
+    viewer: Any = None                    # ROADMAP Queue 1 item 5
+    pose_init: str = "const_velocity"     # or "pnp"
     cache_test_frames: bool = True        # render an unmapped test frame
                                           # into the caches (False: leave
                                           # them empty, the reference's
@@ -100,12 +103,12 @@ class Trainer:
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.pose_init != "const_velocity":
-            raise NotImplementedError(
-                "pose_init='pnp' (pnp_pose_init) is ROADMAP Queue 1 item 6")
+        if self.pose_init not in ("const_velocity", "pnp"):
+            raise ValueError(f"pose_init={self.pose_init!r}: "
+                             "'const_velocity' or 'pnp'")
         if self.viewer is not None:
             raise NotImplementedError(
-                "the viewer (viz/) is ROADMAP Queue 1 item 10")
+                "the viewer (viz/) is ROADMAP Queue 1 item 5")
         check_supported(self.cfg)
         dev = torch.device(self.device)
         seq = self.seq
@@ -235,8 +238,22 @@ class Trainer:
             self.metrics_logger.log(row)
         self._history_flushed = len(self.history)
 
+    def _warn_overflow(self, overflow: float, where: str):
+        """The JAX Trainer's warning for instances dropped at the cap (the
+        port sizes each render's buffer exactly, so any drop is at it)."""
+        if overflow > 0:
+            self.log_fn(f"WARNING: instance overflow {int(overflow)} at the "
+                        f"max_instances cap {self.cfg.instance_cap} "
+                        f"({where}): suffix tiles render EMPTY — quality is "
+                        "compromised while this persists")
+
     def track_frame(self, t: int):
-        if t > 1:
+        if t > 1 and self.pose_init == "pnp":
+            self.poses = posemod.pnp_pose_init(
+                self.poses, t, self.flows_fw[t - 1],
+                self.state.pred_depths[t - 1].to(torch.float32),
+                self.poses.w2c(t - 1).detach(), self.cam, seed=self.seed + t)
+        elif t > 1:
             self.poses = posemod.const_velocity_init(self.poses, t)
         elif t == 1:
             self.poses = posemod.copy_previous_init(self.poses, t)
@@ -293,6 +310,7 @@ class Trainer:
             if overflow:
                 metrics["overflow"] = torch.stack(
                     [o.to(torch.float32) for o in overflow]).max()
+                self._warn_overflow(float(metrics["overflow"]), f"frame {t}")
             if self.colors.is_cuda:
                 torch.cuda.synchronize(self.colors.device)
             metrics["seconds"] = time.time() - t_frame
@@ -359,6 +377,8 @@ class Trainer:
                                  "loss": float(aux["loss"]),
                                  "num_active": int(aux["num_active"]),
                                  "overflow": float(aux["overflow_max"])})
+            self._warn_overflow(self.history[-1]["overflow"],
+                                f"global {total}")
             if self.validation_every and total % self.validation_every < n:
                 val = self.validation()
                 self.history.append({"stage": "global_val", "iter": total,
@@ -461,6 +481,7 @@ class Trainer:
             metrics["psnr_train"] = psnr(gts, preds)
             overflow = max(overflow, ov)
         metrics["overflow"] = overflow
+        self._warn_overflow(overflow, "validation")
         if getattr(self.seq, "gt_poses", None):
             with torch.no_grad():
                 pred_w2c = self.poses.all_w2c().cpu().numpy()

@@ -113,13 +113,11 @@ def test_config_json_roundtrip(tmp_path):
 @pytest.mark.parametrize("argv,exc,match", [
     ([], RuntimeError, "no CUDA device"),
     (["--run_platform", "tpu"], ValueError, "run_platform"),
-    (["--run_platform", "cpu", "--run_visualize", "true"],
-     NotImplementedError, "item 10"),
     (["--run_platform", "cpu", "--run_impl", "oracle"],
      NotImplementedError, "impl='oracle'")])
 def test_cli_refuses(tmp_path, argv, exc, match):
     """No CUDA device (this machine) without --run_platform cpu, an unknown
-    platform, the viewer and the oracle route fail before any work."""
+    platform and the oracle route fail before any work."""
     out = tmp_path / "out"
     base = ["--data_source_path", str(tmp_path), "--run_model_path",
             str(out)]
@@ -127,6 +125,35 @@ def test_cli_refuses(tmp_path, argv, exc, match):
         with pytest.raises(exc, match=match):
             main(base + argv + ["--run_start_checkpoint", "x"])
     assert not out.exists()
+
+
+@pytest.mark.parametrize("viser", [False, True])
+def test_cli_visualize(tmp_path, monkeypatch, capsys, viser):
+    """--run_visualize true: without viser (both machines) cli.train logs
+    "viser not installed; running headless" and goes on to the run, as the
+    JAX train.py does (here it next fails to find frames in an empty
+    directory); with viser importable it refuses before loading any data,
+    naming the viewer's ROADMAP item, and logs no headless line."""
+    import sys
+    import types
+    if viser:
+        monkeypatch.setitem(sys.modules, "viser", types.ModuleType("viser"))
+    else:
+        monkeypatch.setitem(sys.modules, "viser", None)
+    out = tmp_path / "out"
+    argv = ["--data_source_path", str(tmp_path), "--run_model_path",
+            str(out), "--run_platform", "cpu", "--run_visualize", "true"]
+    if viser:
+        with pytest.raises(NotImplementedError, match="item 5"):
+            ttrain.main(argv)
+        assert "headless" not in capsys.readouterr().out
+        assert sorted(p.name for p in out.iterdir()) == ["config.json",
+                                                         "metrics.jsonl"]
+    else:
+        with pytest.raises(FileNotFoundError, match="no frames"):
+            ttrain.main(argv)
+        assert "viser not installed; running headless" in \
+            capsys.readouterr().out
 
 
 def test_debug_nans_turns_on_anomaly_detection(tmp_path, monkeypatch):

@@ -243,13 +243,39 @@ def test_cache_test_frames(cache):
     assert (gn_weight >= 64) == cache, gn_weight
 
 
-@pytest.mark.parametrize("kw,item", [({"pose_init": "pnp"}, "item 6"),
-                                     ({"viewer": object()}, "item 10")])
-def test_features_of_later_slices_raise(kw, item):
-    """PnP pose init and the viewer are not ported: asking for them raises,
-    naming the ROADMAP item, instead of training without them."""
+@pytest.mark.parametrize("kw,exc,match", [
+    ({"viewer": object()}, NotImplementedError, "item 5"),
+    ({"pose_init": "sfm"}, ValueError, "pose_init='sfm'")])
+def test_features_of_later_slices_raise(kw, exc, match):
+    """The viewer is not ported: asking for it raises, naming its ROADMAP
+    item, instead of training without it; an unknown pose init raises,
+    naming it, instead of falling back to constant velocity."""
     sc = make_scene(num_frames=3, n_gaussians=50, height=32, width=48,
                     seed=1)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         TTrainer(Seq(sc, tcam(sc.cam)), ts.TrainConfig(), device="cpu",
                  **kw)
+
+
+def test_overflow_at_the_cap_is_logged():
+    """A render that drops instances at ``max_instances_cap`` is logged
+    with the JAX Trainer's warning, for a progressive frame, a global
+    chunk and a validation (here the cap, one CHUNK, is below the two
+    tiles' padded runs of every render)."""
+    sc = make_scene(num_frames=3, n_gaussians=50, height=32, width=48,
+                    seed=1)
+    logs = []
+    cfg = ts.TrainConfig(tracking_iters=1, mapping_iters=1,
+                         first_frame_mapping_iters=1, tracking_gn_iters=0,
+                         densify_interval=10_000, max_instances_cap=128)
+    tr = TTrainer(Seq(sc, tcam(sc.cam)), cfg, sh_degree_max=0,
+                  capacity=4096, global_chunk=2, validation_every=0,
+                  device="cpu", log_fn=logs.append)
+    tr.progressive_run()
+    tr.global_run(2)
+    tr.validation()
+    warns = [s for s in logs if s.startswith("WARNING: instance overflow")]
+    for where in ("frame 0", "frame 2", "global 2", "validation"):
+        assert any(f"({where})" in s for s in warns), (where, warns)
+    assert all("at the max_instances cap 128" in s
+               and "suffix tiles render EMPTY" in s for s in warns)

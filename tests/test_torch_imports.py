@@ -18,6 +18,14 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
+# The raw-frames path (producers, PnP init): modules that must exist and
+# import without jax, PIL or cv2 (the JAX PnP init calls cv2).
+RAW_FRAMES_MODULES = {"freesurgs_tpu_torch.core.warp",
+                      "freesurgs_tpu_torch.data.flow_hs",
+                      "freesurgs_tpu_torch.cli.produce_inputs",
+                      "freesurgs_tpu_torch.models.pnp",
+                      "freesurgs_tpu_torch.models.pose"}
+
 _PROBE = """
 import importlib, pkgutil, sys
 for blocked in ("jax", "PIL", "cv2"):
@@ -59,4 +67,11 @@ def test_port_imports_no_jax(which):
         capture_output=True, text=True, timeout=300, cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= (46 if which == "package" else 5), res.stdout
+    assert n_mods >= (50 if which == "package" else 5), res.stdout
+    if which == "package":
+        import pkgutil
+
+        import freesurgs_tpu_torch as pkg
+        walked = {m.name for m in pkgutil.walk_packages(
+            pkg.__path__, "freesurgs_tpu_torch.")}
+        assert RAW_FRAMES_MODULES <= walked, RAW_FRAMES_MODULES - walked

@@ -25,9 +25,10 @@ from freesurgs_tpu.ops.oracle import composite_order_weights as jweights
 from freesurgs_tpu_torch.ops.oracle import composite_order_weights as \
     tweights, rasterize_oracle as t_oracle
 from freesurgs_tpu_torch.ops.projection import ProjectedGaussians
+from freesurgs_tpu_torch.ops.binning import sum_layout
 from freesurgs_tpu_torch.ops.raster_cuda import RasterConfig, \
     composite_bwd_plain, composite_fwd_plain, composite_pair_counts, \
-    instance_records, rasterize
+    gaussian_grad_sum, instance_records, rasterize
 
 PIX_TOL = 2e-5
 GRAD_TOL = 5e-5
@@ -142,6 +143,33 @@ def test_overflow_reported_at_cap():
             (proj.mean2d, proj.conic, rgbz, opac)]
     _, _, overflow = port(cam, proj, max_instances=256)(*args)
     assert int(overflow) > 0
+
+
+def test_fixed_order_gaussian_sum():
+    """The per-Gaussian gradient sum after K2 (``gaussian_grad_sum``'s
+    plain version, through the layout's ``sum_order`` / ``sum_start``):
+    bitwise the CPU's ``index_add_`` (which adds each Gaussian's slots in
+    ascending slot order, as the kernel does), on a real layout with
+    padding slots and on a random map with empty and long runs."""
+    cam, proj, rgbz, opac, *_ = scene(400, 64, 96, 3)
+    p = ProjectedGaussians(*(torch.tensor(np.asarray(x)) for x in proj))
+    feat, rect, bins = instance_records(
+        p, torch.tensor(rgbz), torch.tensor(opac),
+        RasterConfig(64, 96, 1 << 20))
+    n = 400
+    rng = np.random.default_rng(5)
+    gidx_rand = torch.tensor(rng.integers(0, n + 1, 3000))
+    for gidx, order, start in (
+            (bins.gather_idx, bins.sum_order, bins.sum_start),
+            (gidx_rand,) + sum_layout(gidx_rand, n)):
+        assert int((gidx == n).sum()) > 0              # padding present
+        d = torch.tensor(rng.normal(size=(10, gidx.shape[0])),
+                         dtype=torch.float32)
+        want = torch.zeros(n + 1, 10).index_add_(0, gidx, d.T)[:n]
+        got = gaussian_grad_sum(d, order, start)
+        assert torch.equal(got, want)
+        assert torch.equal(gidx[order][:int(start[n])],
+                           torch.sort(gidx).values[:int(start[n])])
 
 
 def test_port_oracle_matches_jax_oracle():
