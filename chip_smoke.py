@@ -8,21 +8,26 @@ Phases, each printing one JSON line with its seconds:
      power limit (also printed raw on a line of its own);
   2. build   — nvcc builds every kernel library from csrc/ (ptxas registers,
      shared memory and spills per kernel, each ablation variant included);
-  3. parity  — K1, K2 and the per-Gaussian sum after K2
-     (``gaussian_grad_sum``, bitwise its plain version) against their plain
-     PyTorch versions on bench.py's scene (100k Gaussians, SH3, 1280x1024,
-     seed 0), and K2 launched twice on the same inputs (its outputs and
-     their per-Gaussian sums bitwise equal); the sum also against
-     ``index_add_`` over ``gather_idx``, and the sum layout's runs against
-     ``gather_idx`` itself;
+  3. parity  — K1, K2 (which stores each slot's gradients as one row of a
+     sum-ordered (M, 10) buffer, row ``sum_rank[slot]``) and the
+     per-Gaussian sum after K2 (``gaussian_grad_sum``, bitwise its plain
+     version) against their plain PyTorch versions on bench.py's scene
+     (100k Gaussians, SH3, 1280x1024, seed 0), and K2 launched twice on the
+     same inputs (its outputs and their per-Gaussian sums bitwise equal);
+     the sum also against ``index_add_`` over ``gather_idx``, the sum
+     layout's runs against ``gather_idx`` itself and ``sum_rank`` against
+     the inverse of ``sum_order``;
   4. timing  — CUDA-event times of K1 / K2 / the sum and their plain
-     versions (the sum also beside ``index_add_``), with the pairs the
-     records need and the least time the card could take (bound_ms);
-  5. ablate  — K3, the ablation family of K1's first design
-     (ops/raster_ablate.py): the timing run over every variant on the bench
-     scene, its launch counts read just after; then each variant against
-     its plain version (baseline and noshared bit for bit against each
-     other); then K1 and K3 baseline timed in turns;
+     versions (the sum also beside ``index_add_``; both timed in a CUDA
+     graph, since the sum is shorter than the host's time to launch it,
+     and on the stream as before), with the pairs the records need, the
+     least time the card could take (bound_ms) and the sum's run lengths;
+  5. ablate  — K3, the ablation family of today's K1 (ops/raster_ablate.py,
+     one Hopper mechanism switched off a variant): the timing run over
+     every variant on the bench scene, its launch counts read just after;
+     then each variant against its plain version, ``baseline`` bit for bit
+     against K1 and ``nobulk`` / ``rowmap`` against ``baseline``; then K1
+     and K3 ``baseline`` timed in turns;
   6. slice   — the training job at 1280x1024 from 131,072 initial
      Gaussians, depth cut through TrainConfig: progressive SLAM with the
      default GN tracking (densify, the opacity reset at its last mapping
@@ -209,17 +214,30 @@ def normalized_field_err(got, want) -> list[float]:
     return err
 
 
+def run_lengths(seg) -> dict:
+    """The sum's runs (slots per Gaussian): the longest, the mean, and the
+    share of a warp's lane-steps that add a row when each of 32 lanes
+    walks one run (a warp walks its longest)."""
+    import torch
+    lens = (seg[1:] - seg[:-1]).to(torch.int64)
+    n = lens.shape[0]
+    padded = torch.nn.functional.pad(lens, (0, -n % 32))
+    steps = 32 * int(padded.view(-1, 32).amax(dim=1).sum())
+    return {"max": int(lens.max()), "mean": float(lens.float().mean()),
+            "warp_lane_efficiency": int(lens.sum()) / max(steps, 1)}
+
+
 def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
                   n: int) -> dict:
-    """K1 and K2 on one layout of binned records: each against its plain
-    version under the gates, K2 twice on the same inputs (bitwise equal),
-    then CUDA-event times of both and of their plain versions, the pairs
-    the records need and the bound. Prints the layout's ``parity`` and
-    ``timing`` lines; returns {kernel name: its numbers}."""
+    """K1, K2 and the sum after K2 on one layout of binned records: each
+    against its plain version under the gates, K2 twice on the same inputs
+    (bitwise equal), then CUDA-event times of all three and of their plain
+    versions, the pairs the records need and the bound. Prints the
+    layout's ``parity`` and ``timing`` lines; returns {kernel name: its
+    numbers}."""
     import torch
-    from freesurgs_tpu_torch.ops import raster_ablate as ra
     from freesurgs_tpu_torch.ops import raster_cuda as rc
-    from freesurgs_tpu_torch.ops.raster_ablate import cuda_ms
+    from freesurgs_tpu_torch.ops.raster_ablate import cuda_graph_ms, cuda_ms
 
     t0 = time.time()
     gx, gy = cfg.grid_x, cfg.grid_y
@@ -241,49 +259,55 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
     gout[7] = 0.0
     gout[:, H:, :] = 0.0
     gout[:, :, W:] = 0.0
-    order, seg = bins.sum_order, bins.sum_start
-    dfeat_k = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k,
-                               gout, gx, gy)
-    dfeat_k2 = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k,
-                                gout, gx, gy)
+    order, seg, rank = bins.sum_order, bins.sum_start, bins.sum_rank
+    dsum_k = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k,
+                              gout, rank, gx, gy)
+    dsum_k2 = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k,
+                               gout, rank, gx, gy)
     # the per-Gaussian sums of both launches, by the fixed-order kernel
-    gk = rc.gaussian_grad_sum(dfeat_k, order, seg)
-    gk2 = rc.gaussian_grad_sum(dfeat_k2, order, seg)
+    gk = rc.gaussian_grad_sum(dsum_k, seg)
+    gk2 = rc.gaussian_grad_sum(dsum_k2, seg)
     torch.cuda.synchronize()
-    deterministic = torch.equal(dfeat_k, dfeat_k2)
+    deterministic = torch.equal(dsum_k, dsum_k2)
     if not deterministic:
         fails.append("K2: two launches on the same inputs differ")
     sums_deterministic = torch.equal(gk, gk2)
     if not sums_deterministic:
         fails.append("K2 + gaussian_grad_sum: the per-Gaussian sums of two "
                      "launches differ")
-    del dfeat_k2, gk2
+    del dsum_k2, gk2
     # the sum kernel against its plain version (the same order: bitwise)
-    g_plain = rc.gaussian_grad_sum_plain(dfeat_k, order, seg)
+    g_plain = rc.gaussian_grad_sum_plain(dsum_k, seg)
     sum_err = float((gk - g_plain).abs().max())
     sum_bitwise = torch.equal(gk, g_plain)
     if not sum_bitwise:
         fails.append(f"gaussian_grad_sum differs from its plain version by "
                      f"{sum_err}")
     del g_plain
-    dfeat_p = rc.composite_bwd_plain(feat, rect, starts, counts, gout, gx, gy)
+    dsum_p = rc.composite_bwd_plain(feat, rect, starts, counts, gout, rank,
+                                    gx, gy)
     torch.cuda.synchronize()
-    inst_err = float((dfeat_k - dfeat_p).abs().max())
-    inst_scale = float(dfeat_p.abs().max())
-    gp = rc.gaussian_grad_sum_plain(dfeat_p, order, seg)
+    inst_err = float((dsum_k - dsum_p).abs().max())
+    inst_scale = float(dsum_p.abs().max())
+    gp = rc.gaussian_grad_sum_plain(dsum_p, seg)
     field_err = normalized_field_err(gk, gp)
     if not max(field_err) <= BWD_FIELD_TOL:
         fails.append(f"K2: normalized per-Gaussian gradient err {field_err}")
     # a witness independent of the sum layout built on the card: its runs
-    # hold exactly the non-padding slots, and the kernel's sums agree with
-    # index_add_ over gather_idx
+    # hold exactly the non-padding slots, sum_rank inverts sum_order (so
+    # padding rows come last), and the kernel's sums agree with index_add_
+    # over gather_idx of K2's rows put back in slot order
     held = gidx[order][:int(seg[-1])]
     layout_ok = torch.equal(held, torch.sort(gidx[gidx < n]).values)
     if not layout_ok:
         fails.append("sum layout: its runs are not the non-padding slots "
                      "of gather_idx grouped by Gaussian")
+    rank_ok = torch.equal(rank[order.long()], torch.arange(
+        m, dtype=torch.int32, device=dev))
+    if not rank_ok:
+        fails.append("sum layout: sum_rank is not the inverse of sum_order")
     g_lib = torch.zeros(n + 1, rc.N_FIELD, device=dev).index_add_(
-        0, gidx, dfeat_k.T)[:n]
+        0, gidx, dsum_k[rank.long()])[:n]
     lib_err = normalized_field_err(gk, g_lib)
     if not max(lib_err) <= BWD_FIELD_TOL:
         fails.append(f"gaussian_grad_sum vs index_add_: normalized err "
@@ -298,6 +322,7 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
           per_gaussian_sums_bitwise_deterministic=sums_deterministic,
           gaussian_grad_sum_vs_plain_max_abs_err=sum_err,
           sum_layout_is_gather_idx_grouped=layout_ok,
+          sum_rank_is_inverse_of_sum_order=rank_ok,
           gaussian_grad_sum_vs_index_add_normalized_err_per_field=lib_err,
           tolerances={"fwd_channel": FWD_CHANNEL_TOL,
                       "fwd_stop_frac": FWD_STOP_DIFF_FRAC,
@@ -307,33 +332,38 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
                       "gaussian_grad_sum_vs_plain": "bitwise equal",
                       "gaussian_grad_sum_vs_index_add_": BWD_FIELD_TOL})
     check(not fails, f"{layout}: " + "; ".join(fails))
-    del dfeat_p, gk, gp, out_p
+    del dsum_p, gk, gp, out_p
 
     t0 = time.time()
     ms_fwd = cuda_ms(lambda: rc.composite_fwd(feat, rect, starts, counts,
                                               gx, gy), iters=20)
     ms_bwd = cuda_ms(lambda: rc.composite_bwd(feat, rect, starts, counts,
-                                              keff_k, out_k, gout, gx, gy),
-                     iters=20)
-    # K1's first design (K3 baseline) on the same records, for comparison
-    ms_first = cuda_ms(lambda: ra.composite_fwd_ablate(
-        "baseline", feat, rect, starts, counts, gx, gy), iters=20)
+                                              keff_k, out_k, gout, rank, gx,
+                                              gy), iters=20)
     plain_fwd = cuda_ms(lambda: rc.composite_fwd_plain(
         feat, rect, starts, counts, gx, gy), iters=3, warmup=1)
     plain_bwd = cuda_ms(lambda: rc.composite_bwd_plain(
-        feat, rect, starts, counts, gout, gx, gy), iters=3, warmup=1)
-    # the per-Gaussian sum: kernel, plain version, and index_add_ (the one
-    # PyTorch call that computes it, with atomics: the library yardstick)
-    ms_sum = cuda_ms(lambda: rc.gaussian_grad_sum(dfeat_k, order, seg),
-                     iters=20)
-    plain_sum = cuda_ms(lambda: rc.gaussian_grad_sum_plain(dfeat_k, order,
-                                                           seg),
+        feat, rect, starts, counts, gout, rank, gx, gy), iters=3, warmup=1)
+    # the per-Gaussian sum: kernel, plain version, and index_add_ over each
+    # row's Gaussian (the one PyTorch call that computes it, with atomics:
+    # the library yardstick). The kernel is shorter than the host's time
+    # to launch it, so it and index_add_ are timed in a CUDA graph (device
+    # time); the stream-timed figure, the earlier method, stays beside them.
+    sum_call = lambda: rc.gaussian_grad_sum(dsum_k, seg)  # noqa: E731
+    row_gauss = gidx[order.long()]
+    lib_call = lambda: torch.zeros(  # noqa: E731
+        n + 1, rc.N_FIELD, device=dev).index_add_(0, row_gauss, dsum_k)
+    ms_sum_stream = cuda_ms(sum_call, iters=20)
+    ms_sum = cuda_graph_ms(sum_call, iters=20)
+    lib_sum_stream = cuda_ms(lib_call, iters=20)
+    lib_sum = cuda_graph_ms(lib_call, iters=20)
+    plain_sum = cuda_ms(lambda: rc.gaussian_grad_sum_plain(dsum_k, seg),
                         iters=3, warmup=1)
-    lib_sum = cuda_ms(lambda: torch.zeros(n + 1, rc.N_FIELD, device=dev)
-                      .index_add_(0, gidx, dfeat_k.T), iters=20)
-    del dfeat_k
+    del dsum_k, row_gauss
     run_slots = int(seg[-1])
-    sum_bytes = 4 * rc.N_FIELD * run_slots + 4 * run_slots + 4 * (n + 1) \
+    # dsum's rows of the runs read once (40 B a slot), start read and out
+    # written once
+    sum_bytes = 4 * rc.N_FIELD * run_slots + 4 * (n + 1) \
         + 4 * rc.N_FIELD * n
     sum_ops = float(rc.N_FIELD * run_slots)
     # the pairs these records need, by kind, and the slots walked (every
@@ -346,7 +376,9 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
     nt = gx * gy
     img = 8 * gy * rc.BIN * gx * rc.BIN * 4
     f_bytes = fwd_bytes(m, nt, gx, gy, rc.BIN)
-    bwd_bytes = 4 * (2 * rc.N_FIELD * m + m + 3 * nt) + 2 * img * 7 // 8
+    # feat and dsum, rect and sum_rank, starts / counts / keff, out and
+    # gout (7 of 8 channels)
+    bwd_bytes = 4 * (2 * rc.N_FIELD * m + 2 * m + 3 * nt) + 2 * img * 7 // 8
     rows = {}
     for name, ms, pms, ops, nbytes, err, lib in (
             ("composite_fwd", ms_fwd, plain_fwd, fwd_ops, f_bytes, fwd_err,
@@ -363,13 +395,16 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
           pairs=pairs, pixel_slots_to_keff=slots, fwd_ops=fwd_ops,
           bwd_ops=bwd_ops, fwd_bytes=f_bytes, bwd_bytes=bwd_bytes,
           fwd_ms=ms_fwd, bwd_ms=ms_bwd, fwd_plain_ms=plain_fwd,
-          bwd_plain_ms=plain_bwd, fwd_first_design_ms=ms_first,
+          bwd_plain_ms=plain_bwd,
           fwd_bound_ms=rows["composite_fwd"]["bound_ms"],
           bwd_bound_ms=rows["composite_bwd"]["bound_ms"],
           fwd_share_of_bound=rows["composite_fwd"]["bound_ms"] / ms_fwd,
           bwd_share_of_bound=rows["composite_bwd"]["bound_ms"] / ms_bwd,
           sum_ms=ms_sum, sum_plain_ms=plain_sum, sum_index_add_ms=lib_sum,
+          sum_stream_timed_ms=ms_sum_stream,
+          sum_index_add_stream_timed_ms=lib_sum_stream,
           sum_bytes=sum_bytes, sum_run_slots=run_slots,
+          sum_run_lengths=run_lengths(seg),
           sum_bound_ms=rows["gaussian_grad_sum"]["bound_ms"],
           sum_share_of_bound=rows["gaussian_grad_sum"]["bound_ms"] / ms_sum,
           library_ms=None,
@@ -378,10 +413,16 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
     return rows
 
 
+# K3 variants that compute K1's function with K1's arithmetic per pair:
+# baseline first, then those held to it bit for bit.
+BITWISE_BASELINE = ("baseline", "nobulk", "rowmap")
+
+
 def run_ablate(bench, results):
     """K3's path (the ablation timing run, counted), then each variant
-    against its plain version (not counted), then the forward of today
-    (K1) and the first design (K3 ``baseline``) timed in turns."""
+    against its plain version (not counted), ``baseline`` against K1 and
+    ``nobulk`` / ``rowmap`` against ``baseline`` bit for bit, then K1 and
+    K3 ``baseline`` (the same code) timed in turns."""
     import torch
     from freesurgs_tpu_torch.ops import raster_ablate as ra
     from freesurgs_tpu_torch.ops import raster_cuda as rc
@@ -412,7 +453,7 @@ def run_ablate(bench, results):
                "launches": launches[name], "max_abs_err_per_channel": ch_err,
                "stop_index_diff": stop_diff,
                "keff_diff": int((keff_k != keff_p).sum())}
-        if name in ("baseline", "noshared"):
+        if name in BITWISE_BASELINE:
             outs[name] = (out_k, keff_k)
         pairs = ra.ablate_pair_counts(name, feat, rect, bins.tile_start,
                                       bins.tile_count, gx)
@@ -430,12 +471,17 @@ def run_ablate(bench, results):
             "launches": launches[name], "max_abs_err": max(ch_err),
             "ms": ms[name], "plain_ms": row["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
-    (ob, kb), (on, kn) = outs["baseline"], outs["noshared"]
-    same = torch.equal(ob, on) and torch.equal(kb, kn)
-    if not same:
-        fails.append("K3 baseline and noshared differ")
-    # the forward's two designs on one card, in turns
+    # baseline is K1's code; nobulk and rowmap change no pair's arithmetic
+    ob, kb = outs["baseline"]
     k1_out, k1_keff = rc.composite_fwd(*args)
+    bitwise = {"baseline_vs_k1": torch.equal(ob, k1_out)
+               and torch.equal(kb, k1_keff)}
+    for name in BITWISE_BASELINE[1:]:
+        on, kn = outs[name]
+        bitwise[f"{name}_vs_baseline"] = (torch.equal(ob, on)
+                                          and torch.equal(kb, kn))
+    fails += [f"K3 {k}: not bitwise equal" for k, v in bitwise.items()
+              if not v]
     turns = {"k1_ms": [], "baseline_ms": []}
     for _ in range(2):
         turns["k1_ms"].append(cuda_ms(lambda: rc.composite_fwd(*args),
@@ -443,12 +489,11 @@ def run_ablate(bench, results):
         turns["baseline_ms"].append(cuda_ms(
             lambda: ra.composite_fwd_ablate("baseline", *args), iters=20))
     phase("ablate", t0, instances=m, variants=variants,
-          baseline_noshared_bitwise_equal=same,
-          k1_vs_baseline=dict(turns, k1_equal_to_baseline_bitwise=(
-              torch.equal(k1_out, ob) and torch.equal(k1_keff, kb))),
+          bitwise_equal=bitwise, k1_vs_baseline=turns,
           tolerances={"fwd_channel": FWD_CHANNEL_TOL,
                       "fwd_stop_frac": FWD_STOP_DIFF_FRAC,
-                      "baseline_noshared": "bitwise equal"},
+                      "baseline_vs_k1": "bitwise equal",
+                      "nobulk_rowmap_vs_baseline": "bitwise equal"},
           library_note="no single PyTorch call computes these functions")
     check(not fails, "; ".join(fails))
     check(all(v > 0 for v in launches.values()),
@@ -1701,8 +1746,8 @@ def ptxas_report(reports: dict[str, str]) -> dict:
     """Registers, shared memory and spills of each compiled kernel; the
     ablation's template instances are named by their variant."""
     from freesurgs_tpu_torch.ops.raster_ablate import VARIANTS
-    by_switches = {(m.stop, m.rect_mask, m.shared, not m.linear_t): name
-                   for name, m in VARIANTS.items()}
+    by_switches = {(m.stop, m.rect_mask, m.bulk, m.quad, not m.linear_t):
+                   name for name, m in VARIANTS.items()}
     out = {}
     for lib, rep in reports.items():
         for block in rep.split("Compiling entry function")[1:]:

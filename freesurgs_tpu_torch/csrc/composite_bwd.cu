@@ -9,6 +9,16 @@
 // Slots past the replay are written as zeros: the output buffer is not
 // initialised.
 //
+// The store is in the per-Gaussian sum's order: slot s's 10 gradients are
+// one contiguous 40 B row, dsum[sum_rank[s]] of a slot-major (M, 10)
+// buffer, where sum_rank (ops/binning.py sum_layout) sorts the slots by
+// the Gaussian they hold. So the sum after this kernel
+// (gaussian_grad_sum.cu) reads each Gaussian's gradients as contiguous
+// rows, not as 10 gathers of 4 B a slot from a field-major (10, M) buffer
+// (each in its own 32 B sector). Each chunk's 128 ranks ride its bulk copy
+// (512 B more on the same mbarrier), and 10 neighbouring threads write a
+// slot's row, so a warp stores whole rows.
+//
 // Per pixel, with cg = sum_ch g_ch c_ch of the instance and S the running
 // sum of w cg over the instances composited so far (itself included):
 //   dalpha = cg T - (t0 + g_T T_final - S) / (1 - alpha),
@@ -29,7 +39,8 @@
 // pairs that need float work (a blended pair ~58 in this replay and chain,
 // a cut pair ~14), against 67 TFLOP/s of non-tensor f32; pairs past a
 // pixel's stop need none here, not even the stopping one. The bytes (feat,
-// out and gout read once, dfeat written once) are small beside them.
+// out, gout and sum_rank read once, dsum written once) are small beside
+// them.
 // The first design reached ~5% of that bound: every warp held pixels
 // of all four 16 px quadrants, so rect misses cost every warp a full
 // record step, and every warp reduced every record's 10 gradients with 10
@@ -39,13 +50,14 @@
 //    branch with no reduction;
 //  - the 10 sums of a record the warp touches are reduced by one
 //    transposing butterfly (12 shuffles, reduce_scatter10), skipped when no
-//    lane contributed, and land one field per lane in part[warp][f][j];
+//    lane contributed, and land one field per lane in part[warp][j][f];
 //  - after each chunk every thread sums part over the warps in warp order
 //    (fixed, deterministic, no atomics) for 5 of the chunk's 1280
-//    (field, slot) outputs;
+//    (slot, field) outputs; part is slot-major, so the butterfly's 10
+//    writers and the sum's readers touch consecutive words;
 //  - chunks arrive by bulk copy (TMA) into two buffers on mbarriers: chunk
 //    c + 1 lands during chunk c's walk and sum.
-// Shared memory is 52 KB (dynamic) and the launch bound asks for 3 CTAs
+// Shared memory is 53 KB (dynamic) and the launch bound asks for 3 CTAs
 // (24 warps) per SM: ptxas fits 80 registers with a 12-byte spill.
 
 #include "composite_common.cuh"
@@ -56,9 +68,30 @@ namespace {
 
 struct BwdShared {
   Stage st;
-  float part[NWARPS][NF][CHUNK];   // per-warp record gradients of a chunk
+  int rank[2][CHUNK];              // sum_rank of each buffer's slots
+  float part[NWARPS][CHUNK][NF];   // per-warp record gradients of a chunk
   int smax[NWARPS];                // each warp's largest stop index
 };
+
+// One thread: stage_issue plus the chunk's ranks into rank[b], on the same
+// mbarrier (its expected bytes raised first, before the arrival that
+// stage_issue makes, so the phase cannot complete without them).
+__device__ inline void stage_issue_ranked(BwdShared& sh, int b,
+                                          const float* feat, const int* rect,
+                                          const int* sum_rank, int M,
+                                          int base) {
+  const uint32_t bar = smem_addr(&sh.st.full[b]);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"((uint32_t)(CHUNK * 4))
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(sh.rank[b])),
+      "l"(sum_rank + base), "r"((uint32_t)(CHUNK * 4)), "r"(bar)
+      : "memory");
+  stage_issue(sh.st, b, feat, rect, M, base);
+}
 
 // Field whose total lane `lane` holds after reduce_scatter10, or -1 where
 // the lane only duplicates another's (the writers are 10 distinct lanes).
@@ -120,7 +153,8 @@ __global__ void __launch_bounds__(NTHREADS, 3)
 composite_bwd_kernel(const float* __restrict__ feat, const int* __restrict__ rect,
                      const int* __restrict__ starts, const int* __restrict__ counts,
                      const int* __restrict__ keff_in, const float* __restrict__ out,
-                     const float* __restrict__ gout, float* __restrict__ dfeat,
+                     const float* __restrict__ gout,
+                     const int* __restrict__ sum_rank, float* __restrict__ dsum,
                      int M, int grid_x, int num_tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdShared& sh = *reinterpret_cast<BwdShared*>(smem_raw);
@@ -164,14 +198,15 @@ composite_bwd_kernel(const float* __restrict__ feat, const int* __restrict__ rec
   for (int w = 0; w < NWARPS; ++w) n_load = max(n_load, sh.smax[w]);
   n_load = min((n_load + CHUNK - 1) / CHUNK, keff_in[tile]);
   if (threadIdx.x == 0) {
-    if (n_load > 0) stage_issue(sh.st, 0, feat, rect, M, start);
-    if (n_load > 1) stage_issue(sh.st, 1, feat, rect, M, start + CHUNK);
+    if (n_load > 0) stage_issue_ranked(sh, 0, feat, rect, sum_rank, M, start);
+    if (n_load > 1)
+      stage_issue_ranked(sh, 1, feat, rect, sum_rank, M, start + CHUNK);
   }
-  // slots of the chunks never composited: exact zeros
+  // slots of the chunks never composited: exact zeros, in their rows
   for (int i = n_load * CHUNK * NF + threadIdx.x; i < n_chunks * CHUNK * NF;
        i += NTHREADS) {
-    const int c = i / (CHUNK * NF), f = (i / CHUNK) % NF, j = i % CHUNK;
-    dfeat[(size_t)f * M + start + c * CHUNK + j] = 0.0f;
+    const int slot = i / NF, f = i % NF;
+    dsum[(size_t)__ldg(sum_rank + start + slot) * NF + f] = 0.0f;
   }
 
   for (int c = 0; c < n_load; ++c) {
@@ -233,31 +268,32 @@ composite_bwd_kernel(const float* __restrict__ feat, const int* __restrict__ rec
         v[4] = -0.5f * U;
         val = reduce_scatter10(v, lane);
       }
-      if (wfield >= 0) sh.part[warp][wfield][j] = val;
+      if (wfield >= 0) sh.part[warp][j][wfield] = val;
     }
     __syncthreads();              // part complete
     // warp w wrote slot j iff its quadrant is in the rect and j is before
-    // its last stop; sum those in warp order
+    // its last stop; sum those in warp order, into slot j's row
     for (int it = threadIdx.x; it < NF * CHUNK; it += NTHREADS) {
-      const int f = it / CHUNK, j = it % CHUNK;
+      const int j = it / NF, f = it % NF;
       const int rc = r.rect[j];
       const int i = c * CHUNK + j;
       float s = 0.0f;
 #pragma unroll
       for (int w = 0; w < NWARPS; ++w)
-        if (i < sh.smax[w] && warp_hits(rc, w, tx16, ty16)) s += sh.part[w][f][j];
-      dfeat[(size_t)f * M + start + c * CHUNK + j] = s;
+        if (i < sh.smax[w] && warp_hits(rc, w, tx16, ty16)) s += sh.part[w][j][f];
+      dsum[(size_t)sh.rank[b][j] * NF + f] = s;
     }
     __syncthreads();              // part and buffer b consumed
     if (threadIdx.x == 0 && c + 2 < n_load)
-      stage_issue(sh.st, b, feat, rect, M, start + (c + 2) * CHUNK);
+      stage_issue_ranked(sh, b, feat, rect, sum_rank, M,
+                         start + (c + 2) * CHUNK);
   }
 }
 
 extern "C" int composite_bwd(const float* feat, const int* rect, const int* starts,
                              const int* counts, const int* keff, const float* out,
-                             const float* gout, float* dfeat, int M, int grid_x,
-                             int num_tiles, void* stream) {
+                             const float* gout, const int* sum_rank, float* dsum,
+                             int M, int grid_x, int num_tiles, void* stream) {
   static bool smem_set = false;   // above 48 KB needs the opt-in
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -268,7 +304,8 @@ extern "C" int composite_bwd(const float* feat, const int* rect, const int* star
   }
   if (num_tiles > 0) {
     composite_bwd_kernel<<<num_tiles, NTHREADS, BWD_SMEM, (cudaStream_t)stream>>>(
-        feat, rect, starts, counts, keff, out, gout, dfeat, M, grid_x, num_tiles);
+        feat, rect, starts, counts, keff, out, gout, sum_rank, dsum, M, grid_x,
+        num_tiles);
   }
   return (int)cudaGetLastError();
 }

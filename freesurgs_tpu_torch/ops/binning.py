@@ -60,17 +60,26 @@ class TileBins(NamedTuple):
     sum_order: torch.Tensor     # (M,) int32 slots stably sorted by Gaussian
     sum_start: torch.Tensor     # (n + 1,) int32 where each Gaussian's run
     #                             of sum_order begins; [n] = first padding
+    sum_rank: torch.Tensor      # (M,) int32 inverse of sum_order: the row
+    #                             of the backward's sum-ordered output that
+    #                             slot s's gradients go to
 
 
 def sum_layout(gather_idx: torch.Tensor, n: int):
-    """(sum_order, sum_start) of a slot -> Gaussian map: the slots stably
-    sorted by Gaussian (each Gaussian's slots one run, in slot order) and
-    the offsets of the runs of Gaussians 0..n-1 (padding index n last).
-    Both int32; no host read."""
+    """(sum_order, sum_start, sum_rank) of a slot -> Gaussian map: the slots
+    stably sorted by Gaussian (each Gaussian's slots one run, in slot
+    order), the offsets of the runs of Gaussians 0..n-1 (padding index n
+    last, from sum_start[n] on), and the inverse permutation: slot s sits
+    at position sum_rank[s] of the sorted order. All int32; no host read
+    (the inverse is one scatter)."""
     held, order = torch.sort(gather_idx, stable=True)
     bounds = torch.arange(n + 1, dtype=held.dtype, device=held.device)
     start = torch.searchsorted(held, bounds, out_int32=True)
-    return order.to(torch.int32), start
+    order = order.to(torch.int32)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.shape[0], dtype=torch.int32,
+                               device=order.device)
+    return order, start, rank
 
 
 def padded_layout(tile_rect: torch.Tensor, grid_x: int, grid_y: int):
@@ -147,10 +156,11 @@ def build_tile_bins(proj: ProjectedGaussians, grid_x: int, grid_y: int,
 
     fit_count = torch.minimum(torch.clamp_min(m - padded_start, 0), raw_count)
     kept = keep.sum().to(torch.int32)
-    sum_order, sum_start = sum_layout(gather_idx, n)
+    sum_order, sum_start, sum_rank = sum_layout(gather_idx, n)
     return TileBins(gather_idx=gather_idx,
                     tile_start=padded_start.to(torch.int32),
                     tile_count=fit_count.to(torch.int32),
                     num_instances=kept,
                     overflow=(total - kept).to(torch.int32),
-                    sum_order=sum_order, sum_start=sum_start)
+                    sum_order=sum_order, sum_start=sum_start,
+                    sum_rank=sum_rank)

@@ -5,19 +5,23 @@ its time (port of ``scripts/kernel_overhead.py``).
 
 builds bench.py's scene (100k Gaussians, SH3, 1280x1024, seed 0) on the
 card, bins it as ``render`` does, and prints the CUDA-event time of every
-variant and its difference from ``baseline``. Each variant is a copy of
-the first design of the forward kernel (``csrc/composite_fwd.cu``, K1: a
-thread -> pixel map that spans all four 16 px quadrants in every warp,
-cooperative chunk loads) with one mechanism switched off (``csrc/composite_fwd_ablate.cu``):
+variant and its difference from ``baseline``. Each variant is today's
+forward kernel (``csrc/composite_fwd.cu``, K1) with one Hopper mechanism
+switched off by a template switch (``csrc/composite_fwd_ablate.cu``):
 
-  baseline  nothing: the first design, which computes K1's function
-  nostop    the per-pixel T < 1e-4 stop and the block vote: every slot of
-            the run composites
-  norect    the 16 px rect tests: the rect mask passes all
-  noshared  shared-memory staging: records read from global memory
-            (``baseline``'s function, bit for bit)
+  baseline  nothing: K1 itself, bit for bit (output and keff)
+  nostop    the T < 1e-4 stop, the -inf logT of a stopped pixel, the block
+            vote and the skip of a fully stopped warp: every slot of the
+            run composites
+  norect    the warp-uniform 16 px rect branch: the rect mask passes all
+  nobulk    the double-buffered bulk copies: one cooperative synchronous
+            load per chunk into one buffer (``baseline``'s function, bit
+            for bit)
+  rowmap    the quadrant pixel map: the first design's thread -> pixel
+            rows, so the rect test diverges inside warps (``baseline``'s
+            function, bit for bit)
   linear_t  log-space transmittance: T *= 1 - alpha
-  minimal   all four
+  minimal   all of the above
 
 Each variant computes a function of its own, which its plain version (the
 switches of ``composite_fwd_plain``) gives on a CPU tensor; on a CUDA
@@ -43,13 +47,15 @@ from .render import raster_config
 
 
 class Mechanisms(NamedTuple):
-    stop: bool = True          # T < 1e-4 stop, stopped-pixel skip, vote
-    rect_mask: bool = True     # the 16 px rect tests
-    shared: bool = True        # records staged in shared memory
+    stop: bool = True          # T < 1e-4 stop, -inf logT, vote, warp skip
+    rect_mask: bool = True     # the 16 px rect branch
+    bulk: bool = True          # double-buffered bulk copies (TMA)
+    quad: bool = True          # the quadrant pixel map
     linear_t: bool = False     # T as a running product (not log space)
 
     def plain(self) -> dict:
-        """The switches of the plain version (staging has no function)."""
+        """The switches of the plain version (staging and the pixel map
+        have no function)."""
         return {"stop": self.stop, "rect_mask": self.rect_mask,
                 "linear_t": self.linear_t}
 
@@ -58,10 +64,11 @@ VARIANTS = {
     "baseline": Mechanisms(),
     "nostop": Mechanisms(stop=False),
     "norect": Mechanisms(rect_mask=False),
-    "noshared": Mechanisms(shared=False),
+    "nobulk": Mechanisms(bulk=False),
+    "rowmap": Mechanisms(quad=False),
     "linear_t": Mechanisms(linear_t=True),
-    "minimal": Mechanisms(stop=False, rect_mask=False, shared=False,
-                          linear_t=True),
+    "minimal": Mechanisms(stop=False, rect_mask=False, bulk=False,
+                          quad=False, linear_t=True),
 }
 
 # Kernel launches per variant since the last reset, counted where each
@@ -156,6 +163,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     a.record()
     for _ in range(iters):
         fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def cuda_graph_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device ms per call of ``fn`` with the host's launch time taken
+    out: ``iters`` calls captured in one CUDA graph, whose replay is timed
+    by CUDA events. For kernels shorter than the host's time to launch
+    them, where ``cuda_ms`` times the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters

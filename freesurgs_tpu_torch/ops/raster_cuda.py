@@ -17,11 +17,13 @@ Compositing output, per pixel of the bin-padded image (8, Hp, Wp):
 index (slots of the pixel's tile run up to its last composited instance),
 plus ``keff`` per tile: the CHUNKs composited before every pixel stopped.
 
-The backward's per-instance gradients are summed per Gaussian by
-``gaussian_grad_sum`` in a fixed order: each Gaussian's slots in ascending
-slot order, through the layout's ``sum_order`` / ``sum_start``
-(``ops/binning.py``), so training is reproducible from run to run on the
-card (``index_add_``'s float atomics were not).
+The backward writes each slot's 10 gradients as one row of a sum-ordered
+``dsum (M, 10)``: slot s goes to row ``sum_rank[s]`` of the layout
+(``ops/binning.py``), so each Gaussian's slots are the contiguous rows
+``sum_start[g]:sum_start[g + 1]``, in ascending slot order, and padding
+slots come last. ``gaussian_grad_sum`` adds each run front to back from 0:
+a fixed order, so training is reproducible from run to run on the card
+(``index_add_``'s float atomics were not).
 
 On a CUDA tensor ``composite_fwd`` / ``composite_bwd`` /
 ``gaussian_grad_sum`` launch the kernels in ``csrc/`` (built with nvcc on
@@ -307,12 +309,13 @@ def composite_fwd_plain(feat: torch.Tensor, rect: torch.Tensor,
 
 def composite_bwd_plain(feat: torch.Tensor, rect: torch.Tensor,
                         starts: torch.Tensor, counts: torch.Tensor,
-                        gout: torch.Tensor, grid_x: int,
-                        grid_y: int) -> torch.Tensor:
+                        gout: torch.Tensor, sum_rank: torch.Tensor,
+                        grid_x: int, grid_y: int) -> torch.Tensor:
     """Plain backward: autograd through ``composite_fwd_plain``'s tile
     batches. gout (8, Hp, Wp) is the cotangent of the image channels 0-5
-    and T_final (channel 6). Returns dfeat (10, M), zero on slots no tile
-    run covers."""
+    and T_final (channel 6). Returns dsum (M, 10) in sum order: row
+    sum_rank[s] holds slot s's gradient, zero on slots no tile run
+    covers."""
     dev = feat.device
     dfeat = torch.zeros_like(feat)
     g_tiles = _tile_views(gout, grid_x, grid_y)
@@ -327,22 +330,23 @@ def composite_bwd_plain(feat: torch.Tensor, rect: torch.Tensor,
             (db,) = torch.autograd.grad((img, T_final), (fb,),
                                         (g[:, 0:6], g[:, 6]))
         dfeat[:, idx[slot_ok]] = db[:, slot_ok]
-    return dfeat
+    dsum = dfeat.new_empty(dfeat.shape[1], N_FIELD)
+    dsum[sum_rank] = dfeat.T
+    return dsum
 
 
-def gaussian_grad_sum_plain(dfeat: torch.Tensor, order: torch.Tensor,
+def gaussian_grad_sum_plain(dsum: torch.Tensor,
                             start: torch.Tensor) -> torch.Tensor:
-    """Plain per-Gaussian sum: (n, 10), row g the sum of dfeat (10, M) over
-    Gaussian g's slots ``order[start[g]:start[g + 1]]``, added front to
-    back from 0 (rank r of every run in one step), the kernel's order."""
+    """Plain per-Gaussian sum: (n, 10), row g the sum of the sum-ordered
+    rows ``dsum[start[g]:start[g + 1]]``, added front to back from 0 (rank
+    r of every run in one step), the kernel's order."""
     n = start.shape[0] - 1
-    vals = dfeat.T[order]                                 # (M, 10)
     st = start.to(torch.int64)
     lens = st[1:] - st[:-1]
-    out = dfeat.new_zeros(n, N_FIELD)
+    out = dsum.new_zeros(n, N_FIELD)
     for r in range(int(lens.max()) if n else 0):
         g = torch.nonzero(lens > r).squeeze(1)
-        out[g] += vals[st[g] + r]
+        out[g] += dsum[st[g] + r]
     return out
 
 
@@ -527,48 +531,56 @@ def composite_fwd(feat: torch.Tensor, rect: torch.Tensor,
 def composite_bwd(feat: torch.Tensor, rect: torch.Tensor,
                   starts: torch.Tensor, counts: torch.Tensor,
                   keff: torch.Tensor, out: torch.Tensor, gout: torch.Tensor,
-                  grid_x: int, grid_y: int) -> torch.Tensor:
-    """Backward compositing: dfeat (10, M) per instance slot."""
+                  sum_rank: torch.Tensor, grid_x: int,
+                  grid_y: int) -> torch.Tensor:
+    """Backward compositing: dsum (M, 10), slot s's gradients in row
+    sum_rank[s] (int32, ``binning.sum_layout``)."""
     if not feat.is_cuda:
         return composite_bwd_plain(feat, rect, starts, counts, gout,
-                                   grid_x, grid_y)
+                                   sum_rank, grid_x, grid_y)
     dev, m, nt = _launch_inputs(feat, rect, starts, counts, grid_x, grid_y)
     img_shape = (N_OUT, grid_y * BIN, grid_x * BIN)
     _check(keff, "keff", torch.int32, (nt,), dev)
     _check(out, "out", torch.float32, img_shape, dev)
     _check(gout, "gout", torch.float32, img_shape, dev)
-    dfeat = torch.empty(N_FIELD, m, dtype=torch.float32, device=dev)
-    fn = kernel_fn("composite_bwd", "composite_bwd", 8)
+    _check(sum_rank, "sum_rank", torch.int32, (m,), dev)
+    # each chunk's ranks arrive with its records by a 512 B bulk copy
+    if sum_rank.data_ptr() % 16:
+        raise ValueError("sum_rank is not 16-byte aligned")
+    dsum = torch.empty(m, N_FIELD, dtype=torch.float32, device=dev)
+    fn = kernel_fn("composite_bwd", "composite_bwd", 9)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(feat.data_ptr(), rect.data_ptr(), starts.data_ptr(),
                  counts.data_ptr(), keff.data_ptr(), out.data_ptr(),
-                 gout.data_ptr(), dfeat.data_ptr(), m, grid_x, nt, stream)
+                 gout.data_ptr(), sum_rank.data_ptr(), dsum.data_ptr(), m,
+                 grid_x, nt, stream)
     if err != 0:
         raise RuntimeError(f"composite_bwd launch failed: CUDA error {err}")
     LAUNCHES["composite_bwd"] += 1
-    return dfeat
+    return dsum
 
 
-def gaussian_grad_sum(dfeat: torch.Tensor, order: torch.Tensor,
+def gaussian_grad_sum(dsum: torch.Tensor,
                       start: torch.Tensor) -> torch.Tensor:
     """Per-Gaussian sum of per-instance gradients, in a fixed order:
-    (n, 10) from dfeat (10, M), order (M,) and start (n + 1,), both int32
+    (n, 10) from the sum-ordered dsum (M, 10) and start (n + 1,) int32
     (``binning.sum_layout``)."""
-    if not dfeat.is_cuda:
-        return gaussian_grad_sum_plain(dfeat, order, start)
-    dev = dfeat.device
-    m = dfeat.shape[1]
+    if not dsum.is_cuda:
+        return gaussian_grad_sum_plain(dsum, start)
+    dev = dsum.device
+    m = dsum.shape[0]
     n = start.shape[0] - 1
-    _check(dfeat, "dfeat", torch.float32, (N_FIELD, m), dev)
-    _check(order, "order", torch.int32, (m,), dev)
+    _check(dsum, "dsum", torch.float32, (m, N_FIELD), dev)
     _check(start, "start", torch.int32, (n + 1,), dev)
+    if dsum.data_ptr() % 8:        # rows are read as five 8 B pairs
+        raise ValueError("dsum is not 8-byte aligned")
     out = torch.empty(n, N_FIELD, dtype=torch.float32, device=dev)
-    fn = kernel_fn("gaussian_grad_sum", "gaussian_grad_sum", 4, n_int=2)
+    fn = kernel_fn("gaussian_grad_sum", "gaussian_grad_sum", 3, n_int=1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(dfeat.data_ptr(), order.data_ptr(), start.data_ptr(),
-                 out.data_ptr(), n, m, stream)
+        err = fn(dsum.data_ptr(), start.data_ptr(), out.data_ptr(), n,
+                 stream)
     if err != 0:
         raise RuntimeError(f"gaussian_grad_sum launch failed: CUDA error "
                            f"{err}")
@@ -588,26 +600,26 @@ class Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mean2d, conic, rgbz, opacity, rect16, gather_idx,
-                tile_start, tile_count, sum_order, sum_start, grid_x,
+                tile_start, tile_count, sum_rank, sum_start, grid_x,
                 grid_y):
         feat, rect = _records(mean2d, conic, rgbz, opacity, rect16,
                               gather_idx)
         out, keff = composite_fwd(feat, rect, tile_start, tile_count,
                                   grid_x, grid_y)
         ctx.save_for_backward(feat, rect, tile_start, tile_count, keff, out,
-                              sum_order, sum_start)
+                              sum_rank, sum_start)
         ctx.grid = (grid_x, grid_y)
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        (feat, rect, starts, counts, keff, out, sum_order,
+        (feat, rect, starts, counts, keff, out, sum_rank,
          sum_start) = ctx.saved_tensors
         gx, gy = ctx.grid
-        dfeat = composite_bwd(feat, rect, starts, counts, keff, out,
-                              gout.contiguous(), gx, gy)
-        # per-Gaussian sum in a fixed order; padding slots are in no run
-        dsrc = gaussian_grad_sum(dfeat, sum_order, sum_start)
+        dsum = composite_bwd(feat, rect, starts, counts, keff, out,
+                             gout.contiguous(), sum_rank, gx, gy)
+        # per-Gaussian sum in a fixed order; padding rows are in no run
+        dsrc = gaussian_grad_sum(dsum, sum_start)
         return (dsrc[:, 0:2], dsrc[:, 2:5], dsrc[:, 6:10], dsrc[:, 5],
                 None, None, None, None, None, None, None, None)
 
@@ -615,9 +627,10 @@ class Composite(torch.autograd.Function):
 # ------------------------------------------------------ the layout carry
 #
 # A binning layout (``TileBins``: gather_idx, tile_start, tile_count,
-# num_instances, overflow) is the port's counterpart of the JAX
-# ``BinState`` (``raster_pallas.py:639-670``) without the fast binner's
-# fields, which the port does not have. Carried across optimizer steps it
+# num_instances, overflow, and the sum layout sum_order / sum_start /
+# sum_rank) is the port's counterpart of the JAX ``BinState``
+# (``raster_pallas.py:639-670``) without the fast binner's fields, which
+# the port does not have. Carried across optimizer steps it
 # skips the binner, and its two host reads, under the JAX contract:
 #
 # - every call prunes and snugs the CURRENT parameters and regathers the
@@ -705,7 +718,7 @@ def rasterize(proj: ProjectedGaussians, rgbz: torch.Tensor,
         overflow = _reuse_overflow(proj_b, cfg)
     out = Composite.apply(proj_b.mean2d, proj_b.conic, rgbz, opacity,
                           proj_b.tile_rect, bins.gather_idx, bins.tile_start,
-                          bins.tile_count, bins.sum_order, bins.sum_start,
+                          bins.tile_count, bins.sum_rank, bins.sum_start,
                           cfg.grid_x, cfg.grid_y)
     out = out[:, :cfg.height, :cfg.width]
     return {"image": out[0:6], "final_T": out[6], "overflow": overflow,

@@ -27,8 +27,9 @@ from freesurgs_tpu_torch.ops.oracle import composite_order_weights as \
 from freesurgs_tpu_torch.ops.projection import ProjectedGaussians
 from freesurgs_tpu_torch.ops.binning import sum_layout
 from freesurgs_tpu_torch.ops.raster_cuda import RasterConfig, \
-    composite_bwd_plain, composite_fwd_plain, composite_pair_counts, \
-    gaussian_grad_sum, instance_records, rasterize
+    _prune_and_snug, _records, composite_bwd_plain, composite_fwd_plain, \
+    composite_pair_counts, gaussian_grad_sum, gaussian_grad_sum_plain, \
+    instance_records, rasterize
 
 PIX_TOL = 2e-5
 GRAD_TOL = 5e-5
@@ -145,31 +146,74 @@ def test_overflow_reported_at_cap():
     assert int(overflow) > 0
 
 
+def check_sum_layout(gidx, order, start, rank, n):
+    """``sum_layout``'s contract: the runs hold each Gaussian's slots in
+    ascending slot order, padding (index n) sorts last, from start[n] on,
+    and sum_rank is the inverse of sum_order."""
+    m = gidx.shape[0]
+    held = gidx[order.long()]
+    assert torch.equal(held, torch.sort(gidx).values)
+    same = held[1:] == held[:-1]
+    assert bool((order[1:] > order[:-1])[same].all())   # slot order in a run
+    assert bool((held[:int(start[n])] < n).all())
+    assert bool((held[int(start[n]):] == n).all())
+    assert torch.equal(rank[order.long()], torch.arange(m, dtype=torch.int32))
+    assert bool((rank[gidx == n] >= start[n]).all())
+
+
 def test_fixed_order_gaussian_sum():
     """The per-Gaussian gradient sum after K2 (``gaussian_grad_sum``'s
-    plain version, through the layout's ``sum_order`` / ``sum_start``):
-    bitwise the CPU's ``index_add_`` (which adds each Gaussian's slots in
-    ascending slot order, as the kernel does), on a real layout with
-    padding slots and on a random map with empty and long runs."""
-    cam, proj, rgbz, opac, *_ = scene(400, 64, 96, 3)
+    plain version over the sum-ordered rows K2 writes, slot s in row
+    ``sum_rank[s]``): bitwise the CPU's ``index_add_`` over ``gather_idx``
+    (which adds each Gaussian's slots in ascending slot order, as the
+    kernel does), on a real layout with padding slots and on a random map
+    with empty and long runs; the layouts checked by ``check_sum_layout``.
+    Then a render on that layout carried with moved means (``rasterize(
+    bins=)``): its per-Gaussian gradients bitwise ``index_add_`` of the
+    plain backward's rows, put back in slot order by ``sum_rank``."""
+    cam, proj, rgbz, opac, g_img, g_T = scene(400, 64, 96, 3)
     p = ProjectedGaussians(*(torch.tensor(np.asarray(x)) for x in proj))
-    feat, rect, bins = instance_records(
-        p, torch.tensor(rgbz), torch.tensor(opac),
-        RasterConfig(64, 96, 1 << 20))
+    cfg = RasterConfig(64, 96, 1 << 20)
+    rgbz_t, opac_t = torch.tensor(rgbz), torch.tensor(opac)
+    feat, rect, bins = instance_records(p, rgbz_t, opac_t, cfg)
     n = 400
     rng = np.random.default_rng(5)
     gidx_rand = torch.tensor(rng.integers(0, n + 1, 3000))
-    for gidx, order, start in (
-            (bins.gather_idx, bins.sum_order, bins.sum_start),
+    for gidx, order, start, rank in (
+            (bins.gather_idx, bins.sum_order, bins.sum_start,
+             bins.sum_rank),
             (gidx_rand,) + sum_layout(gidx_rand, n)):
         assert int((gidx == n).sum()) > 0              # padding present
+        check_sum_layout(gidx, order, start, rank, n)
         d = torch.tensor(rng.normal(size=(10, gidx.shape[0])),
                          dtype=torch.float32)
+        dsum = torch.empty(gidx.shape[0], 10)
+        dsum[rank] = d.T
         want = torch.zeros(n + 1, 10).index_add_(0, gidx, d.T)[:n]
-        got = gaussian_grad_sum(d, order, start)
-        assert torch.equal(got, want)
-        assert torch.equal(gidx[order][:int(start[n])],
-                           torch.sort(gidx).values[:int(start[n])])
+        assert torch.equal(gaussian_grad_sum(dsum, start), want)
+
+    moved = p._replace(mean2d=p.mean2d + 0.25)
+    leaves = [x.clone().requires_grad_(True)
+              for x in (moved.mean2d, moved.conic, rgbz_t, opac_t)]
+    out = rasterize(moved._replace(mean2d=leaves[0], conic=leaves[1]),
+                    leaves[2], leaves[3], cfg, bins=bins)
+    assert out["bins"] is bins
+    got = torch.autograd.grad((out["image"], out["final_T"]), leaves,
+                              (torch.tensor(g_img), torch.tensor(g_T)))
+    proj_b = _prune_and_snug(moved, opac_t)
+    feat, rect = _records(proj_b.mean2d, proj_b.conic, rgbz_t, opac_t,
+                          proj_b.tile_rect, bins.gather_idx)
+    gout = torch.zeros(8, cfg.grid_y * 32, cfg.grid_x * 32)
+    gout[0:6, :64, :96] = torch.tensor(g_img)
+    gout[6, :64, :96] = torch.tensor(g_T)
+    dsum = composite_bwd_plain(feat, rect, bins.tile_start,
+                               bins.tile_count, gout, bins.sum_rank,
+                               cfg.grid_x, cfg.grid_y)
+    want = torch.zeros(n + 1, 10).index_add_(
+        0, bins.gather_idx, dsum[bins.sum_rank.long()])[:n]
+    for a, b in zip(got, (want[:, 0:2], want[:, 2:5], want[:, 6:10],
+                          want[:, 5])):
+        assert torch.equal(a, b)
 
 
 def test_port_oracle_matches_jax_oracle():
@@ -397,8 +441,10 @@ def bwd_mirror(feat, rect, starts, counts, out, gout, grid_x):
 def test_bwd_replay_mirror(saturated):
     """The backward kernel's arithmetic (the numpy mirror above), on the
     records and forward output of a binned scene, against
-    ``composite_bwd_plain`` (autograd through the log-space forward) per
-    slot and against the JAX oracle's VJP per Gaussian: both within 5e-5
+    ``composite_bwd_plain`` (autograd through the log-space forward; its
+    sum-ordered rows put back in slot order by ``sum_rank``) per slot, and
+    against the JAX oracle's VJP per Gaussian, as is the plain backward
+    through ``gaussian_grad_sum_plain``: all within 5e-5
     after normalizing each field by its largest magnitude (the kernels'
     gradient gate). The running-product T and the regrouped sums move the
     result by f32 rounding only; the saturated scene has pixels that stop,
@@ -421,8 +467,9 @@ def test_bwd_replay_mirror(saturated):
     gout[6, :H, :W] = torch.tensor(g_T)
     mirror = bwd_mirror(feat, rect, bins.tile_start, bins.tile_count, out,
                         gout, gx)
-    plain = composite_bwd_plain(feat, rect, bins.tile_start,
-                                bins.tile_count, gout, gx, gy).numpy()
+    dsum = composite_bwd_plain(feat, rect, bins.tile_start,
+                               bins.tile_count, gout, bins.sum_rank, gx, gy)
+    plain = dsum[bins.sum_rank.long()].T.numpy()   # back to slot order
     for f in range(10):
         scale = max(np.abs(plain[f]).max(), 1e-12)
         np.testing.assert_allclose(mirror[f] / scale, plain[f] / scale,
@@ -431,14 +478,17 @@ def test_bwd_replay_mirror(saturated):
     n = proj.mean2d.shape[0]
     per_g = np.zeros((n + 1, 10), F32)
     np.add.at(per_g, bins.gather_idx.numpy(), mirror.T)
-    per_g = per_g[:n]
     args = (np.asarray(proj.mean2d), np.asarray(proj.conic), rgbz, opac)
     _, vjp = jax.vjp(jax_oracle(cam, proj), *map(jnp.asarray, args))
     jg = vjp((jnp.asarray(g_img), jnp.asarray(g_T)))
-    for name, a, b in zip(("mean2d", "conic", "rgbz", "opacity"), jg,
-                          (per_g[:, 0:2], per_g[:, 2:5], per_g[:, 6:10],
-                           per_g[:, 5])):
-        a = np.asarray(a)
-        scale = max(np.abs(a).max(), 1e-12)
-        np.testing.assert_allclose(b / scale, a / scale, atol=GRAD_TOL,
-                                   err_msg=name)
+    # the mirror's per-slot gradients summed per Gaussian, and the plain
+    # backward's sum-ordered rows through the fixed-order sum
+    for per in (per_g[:n],
+                gaussian_grad_sum_plain(dsum, bins.sum_start).numpy()):
+        for name, a, b in zip(("mean2d", "conic", "rgbz", "opacity"), jg,
+                              (per[:, 0:2], per[:, 2:5], per[:, 6:10],
+                               per[:, 5])):
+            a = np.asarray(a)
+            scale = max(np.abs(a).max(), 1e-12)
+            np.testing.assert_allclose(b / scale, a / scale, atol=GRAD_TOL,
+                                       err_msg=name)

@@ -1,7 +1,8 @@
 """The compositing-forward ablation family (``ops/raster_ablate.py``): each
 variant's plain version against a per-pixel sequential walk in numpy f32,
-``baseline`` and ``noshared`` against the forward's own plain version, and
-each variant's pair counts (the operation bound's input) against the walk.
+``baseline``, ``nobulk`` and ``rowmap`` against the forward's own plain
+version, and each variant's pair counts (the operation bound's input)
+against the walk.
 The CUDA kernels are held to these plain versions on the card by
 ``chip_smoke.py``'s ``ablate`` phase.
 
@@ -21,8 +22,7 @@ from freesurgs_tpu_torch.core.camera import Camera
 from freesurgs_tpu_torch.ops.binning import derive_bin_rect
 from freesurgs_tpu_torch.ops.projection import project_gaussians
 from freesurgs_tpu_torch.ops.raster_ablate import (
-    VARIANTS, ablate_pair_counts, composite_fwd_ablate,
-    composite_fwd_ablate_plain)
+    VARIANTS, ablate_pair_counts, composite_fwd_ablate)
 from freesurgs_tpu_torch.ops.raster_cuda import (
     RasterConfig, _prune_and_snug, composite_fwd_plain, instance_records)
 
@@ -150,16 +150,19 @@ def test_plain_variant_matches_sequential_walk(variant, saturated):
 
 
 @pytest.mark.parametrize("saturated", [False, True])
-def test_baseline_and_noshared_are_the_forward(saturated):
-    """Both compute the forward's function: their plain versions equal
-    ``composite_fwd_plain``'s output exactly."""
+@pytest.mark.parametrize("variant", ["nobulk", "rowmap"])
+def test_baseline_nobulk_rowmap_are_the_forward(variant, saturated):
+    """``baseline`` and the variants that change only where records and
+    pixels live compute the forward's function: their plain versions (the
+    wrapper on CPU tensors) equal ``composite_fwd_plain``'s output
+    exactly."""
     *_, cfg, feat, rect, bins = records(saturated)
     args = (feat, rect, bins.tile_start, bins.tile_count, cfg.grid_x,
             cfg.grid_y)
     ref, keff = composite_fwd_plain(*args)
-    for variant in ("baseline", "noshared"):
-        out, k = composite_fwd_ablate_plain(variant, *args)
-        assert torch.equal(out, ref) and torch.equal(k, keff), variant
+    for name in ("baseline", variant):
+        out, k = composite_fwd_ablate(name, *args)
+        assert torch.equal(out, ref) and torch.equal(k, keff), name
 
 
 @pytest.mark.parametrize("saturated", [False, True])
