@@ -1742,6 +1742,402 @@ def run_cli(dev, smi: str, slice_summary: dict) -> dict:
     return total
 
 
+# The fullres phase: cli.make_fullres_dataset's recipe at full width
+# (1280x1024, 20,000 Gaussians, seed 7) cut to FULLRES_FRAMES frames, then
+# cli.run_config34 at cfg34_r5c's settings with its global stage cut to
+# 100 iterations in chunks of 50 (a checkpoint after each), the final pose
+# BA, and a resume from the 50-iteration checkpoint. Depth stays the
+# reference's (TrainConfig defaults: 200 / 50 / 30 iterations).
+FULLRES_FRAMES = 10
+FULLRES_GLOBAL = 100
+FULLRES_CHUNK = 50
+BA_KEYS = ("pose_ba_final_passes", "pose_ba_polish", "pose_ba_s")
+RESUME_KEYS = ("resumed_from", "resumed_at_global_iter")
+
+
+def jax_summary_keys() -> set[str]:
+    """The JAX scripts/run_config34.py's summary keys, read from its
+    full-scale record (results/cfg34_r5c_summary.json)."""
+    return set(json.loads(
+        (REPO / "results" / "cfg34_r5c_summary.json").read_text()))
+
+
+def fullres_argv(dev, data: Path, out: Path, *extra: str) -> list[str]:
+    return ["--data", str(data), "--out", str(out),
+            "--frames", str(FULLRES_FRAMES), "--depth_prior", "metric",
+            "--rebin_every", "4", "--global_iters", str(FULLRES_GLOBAL),
+            "--global_chunk", str(FULLRES_CHUNK), "--checkpoint_every",
+            str(FULLRES_CHUNK), "--device", dev.type, *extra]
+
+
+def finite_metrics(summary: dict, prefix: str = "") -> bool:
+    return all(isinstance(summary.get(prefix + k), float)
+               and math.isfinite(summary[prefix + k])
+               for k in ("psnr", "ssim", "ate"))
+
+
+def ply_equals_field(ply_path: Path, ckpt: Path) -> bool:
+    """The PLY's rows are the checkpoint field's active rows, bitwise."""
+    import torch
+    from freesurgs_tpu_torch.io.checkpoint import restore_checkpoint
+    from freesurgs_tpu_torch.io.ply import ply_to_field
+    tree, _ = restore_checkpoint(str(ckpt), map_location="cpu")
+    fld = tree["state"]["field"]
+    act = fld["active"]
+    ply = ply_to_field(str(ply_path), max_sh_degree=int(fld["max_sh_degree"]),
+                       device="cpu")
+    return ply.capacity == int(act.sum()) and all(
+        torch.equal(getattr(ply, k), fld[k][act]) for k in (
+            "means", "quats", "log_scales", "logit_opacity", "sh_dc",
+            "sh_rest"))
+
+
+def run_fullres(dev, smi: str, tmp: Path) -> dict:
+    """The full-scale recipe and run_config34 at full width, depth cut: the
+    dataset written by ``cli.make_fullres_dataset``, ``cli.run_config34``
+    (progressive, 100 global iterations in two chunks with a checkpoint
+    after each, ckpt_final / PLY / cameras.json, validation, the final pose
+    BA and its summary), then ``--resume`` from the 50-iteration
+    checkpoint. Counters reset just before each command and read just
+    after; returns their launches."""
+    import torch
+    from freesurgs_tpu_torch.cli import make_fullres_dataset, run_config34
+    from freesurgs_tpu_torch.data.scared import load_scared
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.train.steps import TrainConfig
+
+    t0 = time.time()
+    data, out, out2 = tmp / "fullres", tmp / "cfg34", tmp / "cfg34_resume"
+    steps, res = {}, {}
+    t1 = time.time()
+    gen, log = quiet(make_fullres_dataset.main, [
+        "--out", str(data), "--frames", str(FULLRES_FRAMES), "--device",
+        dev.type])
+    steps["make_fullres_dataset"] = time.time() - t1
+    check(gen["overflow_total"] == 0, f"dataset overflow: {log}")
+    res["dataset"] = gen
+
+    rc.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    code, log = quiet(run_config34.main, fullres_argv(
+        dev, data, out, "--save_ckpt", "--pose_ba_final", "1"))
+    torch.cuda.synchronize()
+    steps["run_config34"] = time.time() - t1
+    launches = {"fullres": dict(rc.LAUNCHES)}
+    res["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+    check(code == 0, f"run_config34 exited {code}: {log[-2000:]}")
+    summary = json.loads((out / "summary.json").read_text())
+    summary_ba = json.loads((out / "summary_ba.json").read_text())
+    keys = jax_summary_keys()
+    val_keys = keys & {"psnr", "ssim", "lpips", "lpips_backend",
+                       "psnr_train", "ate", "rpe_trans", "rpe_rot_deg"}
+    check(set(summary) == keys, f"summary keys {sorted(summary)} != the "
+          f"JAX script's {sorted(keys)}")
+    check(set(summary_ba) == keys | set(BA_KEYS)
+          | {"ba_" + k for k in val_keys},
+          f"summary_ba keys {sorted(summary_ba)}")
+    check(summary["global_iters_done"] == FULLRES_GLOBAL,
+          f"global iterations {summary['global_iters_done']}")
+    check(finite_metrics(summary) and finite_metrics(summary_ba, "ba_"),
+          f"validation {summary}, after BA {summary_ba}")
+    for name in ("ckpt_0000050", "ckpt_0000100", "ckpt_final",
+                 "point_cloud.ply", "cameras.json"):
+        check((out / name).exists(), f"run_config34 wrote no {name}")
+    ply_equal = ply_equals_field(out / "point_cloud.ply", out / "ckpt_final")
+    check(ply_equal, "point_cloud.ply differs from the final field")
+
+    # the renders: progressive, the global iterations, the validation
+    # (test views and every 8th train view), the BA pass over the train
+    # frames but 0 and its validation
+    seq = load_scared(str(data), 0, FULLRES_FRAMES, sample_rate=8,
+                      depth_prior="metric")
+    cfg = TrainConfig()
+    exp_fwd, exp_bwd, iters = progressive_counts(cfg, seq)
+    train = [int(t) for t in seq.i_train]
+    n_val = len(seq.i_test) + len(train[::8])
+    n_ba = 25 * len([t for t in train if t != 0])
+    exp = launch_counts(exp_fwd + FULLRES_GLOBAL + 2 * n_val + n_ba,
+                        exp_bwd + FULLRES_GLOBAL + n_ba)
+    check(launches["fullres"] == exp,
+          f"run_config34 launches {launches['fullres']} != renders {exp}")
+
+    # resume from the 50-iteration checkpoint
+    rc.reset_launches()
+    t1 = time.time()
+    code, log = quiet(run_config34.main, fullres_argv(
+        dev, data, out2, "--resume", str(out / "ckpt_0000050")))
+    torch.cuda.synchronize()
+    steps["run_config34_resume"] = time.time() - t1
+    launches["fullres_resume"] = dict(rc.LAUNCHES)
+    check(code == 0, f"run_config34 --resume exited {code}: {log[-2000:]}")
+    resumed = json.loads((out2 / "summary.json").read_text())
+    check(set(resumed) == keys | set(RESUME_KEYS),
+          f"resumed summary keys {sorted(resumed)}")
+    check(resumed["resumed_at_global_iter"] == FULLRES_CHUNK
+          and resumed["global_iters_done"] == FULLRES_GLOBAL,
+          f"resume from {resumed['resumed_at_global_iter']} to "
+          f"{resumed['global_iters_done']}")
+    check(finite_metrics(resumed), f"resumed validation {resumed}")
+    rest = FULLRES_GLOBAL - FULLRES_CHUNK
+    exp_resume = launch_counts(rest + n_val, rest)
+    check(launches["fullres_resume"] == exp_resume,
+          f"resume launches {launches['fullres_resume']} != {exp_resume}")
+    stage = {k: summary[k] for k in ("progressive_s", "global_s",
+                                     "validation_s", "total_s")}
+    stage["pose_ba_s"] = summary_ba["pose_ba_s"]
+    phase("fullres", t0, nvidia_smi=smi, step_seconds=steps,
+          stage_seconds=stage, progressive_iterations=iters,
+          progressive_iterations_per_s=iters / summary["progressive_s"],
+          global_iterations_per_s=FULLRES_GLOBAL / summary["global_s"],
+          launches=launches, summary=summary, summary_ba={
+              k: v for k, v in summary_ba.items() if k.startswith("ba_")
+              or k in BA_KEYS}, resumed={k: resumed[k] for k in (
+                  "resumed_at_global_iter", "global_iters_done", "psnr",
+                  "ssim", "ate", "global_s")},
+          ply_equal_to_final_field_bitwise=ply_equal, **res)
+    return launches
+
+
+class StubElem:
+    """A GUI element of the stub viser server (tests/test_viewer_panels.py's
+    shape): a value and the callbacks registered on it."""
+
+    def __init__(self, value=None):
+        self.value = value
+        self._cbs = []
+
+    def on_click(self, fn):
+        self._cbs.append(fn)
+        return fn
+
+    on_update = on_click
+
+    def click(self, event=None):
+        for fn in self._cbs:
+            fn(event)
+
+
+class StubGui:
+    def __init__(self):
+        self.elems = {}
+
+    @contextlib.contextmanager
+    def add_folder(self, name):
+        yield
+
+    def add_button(self, label):
+        self.elems[label] = StubElem()
+        return self.elems[label]
+
+    def add_slider(self, label, min, max, step, initial_value):
+        self.elems[label] = StubElem(initial_value)
+        return self.elems[label]
+
+    def add_text(self, label, initial_value=""):
+        self.elems[label] = StubElem(initial_value)
+        return self.elems[label]
+
+
+class StubScene:
+    def __init__(self):
+        self.backgrounds = []
+
+    def add_camera_frustum(self, *a, **k):
+        pass
+
+    def set_background_image(self, img):
+        self.backgrounds.append(img)
+
+
+class StubCamera:
+    def __init__(self):
+        self.wxyz = [1.0, 0.0, 0.0, 0.0]
+        self.position = [0.0, 0.0, 0.0]
+
+    def on_update(self, fn):
+        return fn
+
+
+class StubClient:
+    def __init__(self):
+        self.scene = StubScene()
+        self.camera = StubCamera()
+
+
+class StubServer:
+    def __init__(self):
+        self.gui = StubGui()
+        self.scene = StubScene()
+        self._connect = []
+
+    def on_client_connect(self, fn):
+        self._connect.append(fn)
+        return fn
+
+    def connect(self):
+        client = StubClient()
+        for fn in self._connect:
+            fn(client)
+        return client
+
+
+class ReportSpy:
+    """A Trainer viewer that records each report."""
+
+    def __init__(self):
+        self.reports = []
+
+    def report(self, rays_per_sec=None, frame=None):
+        self.reports.append((rays_per_sec, frame))
+
+    def wait_if_paused(self):
+        pass
+
+
+def run_viz(dev, smi: str, tmp: Path) -> dict:
+    """The viewer's render paths on fullres's trained field at 1280x1024:
+    ``render_path`` over an interpolated and an orbit path, ``GSViewer`` on
+    a stub server (a client view, a playback tick, a path export), and a
+    Trainer with a viewer for one global chunk. Counters reset just before
+    each and read just after; returns their launches."""
+    import numpy as np
+    import torch
+    from freesurgs_tpu_torch.data.scared import load_scared
+    from freesurgs_tpu_torch.io.checkpoint import restore_checkpoint
+    from freesurgs_tpu_torch.io.png import read_png
+    from freesurgs_tpu_torch.models.gaussians import GaussianField
+    from freesurgs_tpu_torch.models.pose import PoseTable
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.train.loop import Trainer
+    from freesurgs_tpu_torch.train.steps import TrainConfig
+    from freesurgs_tpu_torch.viz.camera_path import (ellipse_orbit,
+                                                     interpolate_path,
+                                                     render_path,
+                                                     render_view)
+    from freesurgs_tpu_torch.viz.viewer import GSViewer
+
+    t0 = time.time()
+    steps, res = {}, {}
+    data, ckpt = tmp / "fullres", tmp / "cfg34" / "ckpt_final"
+    seq = load_scared(str(data), 0, FULLRES_FRAMES, sample_rate=8,
+                      depth_prior="metric")
+    cam = seq.cam
+    tree, _ = restore_checkpoint(str(ckpt), map_location=dev)
+    fld = dict(tree["state"]["field"])
+    field = GaussianField(**fld)
+    poses = PoseTable(**tree["poses"])
+    with torch.no_grad():
+        w2c_all = poses.all_w2c()
+    train = [int(t) for t in seq.i_train]
+    keyposes = w2c_all[train].cpu().numpy()
+    fps = 4
+    paths = {"interpolate": interpolate_path(keyposes, fps),
+             "ellipse": ellipse_orbit(keyposes, 8)}
+
+    # 1. render_path over both paths
+    launches, frames = {}, {}
+    for name, path in paths.items():
+        rc.reset_launches()
+        t1 = time.time()
+        frames[name] = render_path(field, path, cam, str(tmp / name))
+        torch.cuda.synchronize()
+        steps[f"render_path_{name}"] = time.time() - t1
+        launches[f"render_path_{name}"] = dict(rc.LAUNCHES)
+        check(launches[f"render_path_{name}"] == launch_counts(len(path), 0),
+              f"render_path {name}: launches {launches} for {len(path)} "
+              "poses")
+    for name, fr in frames.items():
+        check(all(np.isfinite(f).all() and f.shape == (3, cam.height,
+                                                       cam.width)
+                  for f in fr), f"a {name} frame is not finite")
+        pngs = sorted((tmp / name).glob("path_*.png"))
+        check(len(pngs) == len(fr) and all(
+            np.array_equal(read_png(str(p)),
+                           (f.transpose(1, 2, 0) * 255).astype(np.uint8))
+            for p, f in zip(pngs, fr)),
+            f"the {name} PNGs do not decode to their frames")
+    # each segment start: the path frame against the render at the trained
+    # keypose. The interpolated pose differs from the keypose by float
+    # rounding (~6e-8), which moves a few pixels by a few thousandths; a
+    # wrong path moves whole frames. So: at most 1e-4 of the values differ
+    # by more than 1/255 (one 8-bit level).
+    starts = []
+    for k in range(len(train) - 1):
+        pose = paths["interpolate"][k * fps]
+        key = render_view(field, keyposes[k], cam)["render"].clamp(0, 1)
+        diff = (key.cpu() - torch.from_numpy(
+            frames["interpolate"][k * fps])).abs()
+        starts.append({
+            "frame": train[k],
+            "pose_max_abs_diff": float(np.abs(pose - keyposes[k]).max()),
+            "keypose_render_max_abs_diff": float(diff.max()),
+            "keypose_render_share_over_1_255": float(
+                (diff > 1 / 255).double().mean())})
+    check(all(s["pose_max_abs_diff"] < 1e-5 for s in starts),
+          f"segment starts moved off their keyposes: {starts}")
+    check(all(s["keypose_render_share_over_1_255"] <= 1e-4 for s in starts),
+          f"render_path frames differ from their keyposes' renders: "
+          f"{starts}")
+
+    # 2. GSViewer on a stub server
+    server = StubServer()
+    viewer = GSViewer(server, lambda: field, lambda: w2c_all[train[-1]], cam,
+                      get_frame_pose=lambda t: w2c_all[t],
+                      num_frames=FULLRES_FRAMES,
+                      export_dir=str(tmp / "render_path"),
+                      start_playback_thread=False)
+    client = server.connect()
+    rc.reset_launches()
+    t1 = time.time()
+    viewer.update_render(client)
+    viewer.playback_tick()
+    add = server.gui.elems["Add camera keyframe"]
+    add.click()
+    client.camera.position = [0.3, 0.0, 0.0]
+    add.click()
+    viewer.export_path()
+    torch.cuda.synchronize()
+    steps["viewer"] = time.time() - t1
+    launches["viewer"] = dict(rc.LAUNCHES)
+    shown = client.scene.backgrounds
+    exported = sorted(p.name for p in (tmp / "render_path").glob("*.png"))
+    check(len(shown) == 2 and all(b.shape == (cam.height, cam.width, 3)
+                                  and b.dtype == np.uint8 for b in shown),
+          f"viewer backgrounds {[b.shape for b in shown]}")
+    check(server.gui.elems["frame"].value == 1
+          and len(exported) == 10
+          and server.gui.elems["keyframes"].value == "exported 10 frames",
+          f"viewer state: slider {server.gui.elems['frame'].value}, "
+          f"{exported}, {server.gui.elems['keyframes'].value}")
+    check(launches["viewer"] == launch_counts(12, 0),
+          f"viewer launches {launches['viewer']} != 12 renders")
+
+    # 3. a Trainer with a viewer, one global chunk on the trained map
+    tr = Trainer(seq, TrainConfig(global_iters=FULLRES_GLOBAL, rebin_every=4),
+                 global_chunk=FULLRES_CHUNK, log_fn=lambda s: None,
+                 device=dev, validation_every=0)
+    tr.restore(str(ckpt))
+    spy = ReportSpy()
+    tr.viewer = spy
+    rc.reset_launches()
+    t1 = time.time()
+    tr.global_run(FULLRES_CHUNK)
+    torch.cuda.synchronize()
+    steps["trainer_with_viewer"] = time.time() - t1
+    launches["viz_trainer"] = dict(rc.LAUNCHES)
+    check(len(spy.reports) == 1 and math.isfinite(spy.reports[0][0])
+          and spy.reports[0][0] > 0, f"viewer reports {spy.reports}")
+    check(launches["viz_trainer"] == launch_counts(FULLRES_CHUNK,
+                                                   FULLRES_CHUNK),
+          f"Trainer launches {launches['viz_trainer']}")
+    phase("viz", t0, nvidia_smi=smi, step_seconds=steps,
+          path_lengths={k: len(v) for k, v in paths.items()},
+          segment_starts=starts, viewer_exported=len(exported),
+          viewer_reports=spy.reports, launches=launches, **res)
+    return launches
+
+
 def ptxas_report(reports: dict[str, str]) -> dict:
     """Registers, shared memory and spills of each compiled kernel; the
     ablation's template instances are named by their variant."""
@@ -1812,6 +2208,9 @@ def main() -> int:
              "overlap": run_overlap(dev),
              "cli": run_cli(dev, smi, slice_summary)}
     paths.update(run_raw(dev, smi))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(run_fullres(dev, smi, Path(tmp)))
+        paths.update(run_viz(dev, smi, Path(tmp)))
     # K1 / K2 / the sum's launches: the sum over the paths, each counted
     # alone
     for row in results["kernels"][:len(MAIN_PATH_REPLACES)]:

@@ -1,0 +1,150 @@
+"""The full-scale run of the port on one GPU (BASELINE configs 3-4).
+
+    python -m freesurgs_tpu_torch.cli.fullscale --results <dir>
+
+Generates the full-res recipe with ``cli.make_fullres_dataset --frames
+60`` (1280x1024, 20,000 Gaussians, seed 7), then trains it with
+``cli.run_config34 --frames 46 --depth_prior metric --rebin_every 4
+--global_iters 30000 --global_chunk 250 --tracking_gn_iters 8 --save_ckpt
+--pose_ba_final 1 --budget_s 2700`` (cfg34_r5c's settings; the budget
+keeps the whole run under an hour), both in this process, on the card
+(without a CUDA device it fails). The dataset, checkpoints and PLY stay in
+a temporary directory, removed at the end; ``--results`` receives what is
+small: ``summary.json`` and ``summary_ba.json`` with ``nvidia_smi`` (the
+card's name and power limit), the peak allocated device memory, the
+largest instance count of any training render, each stage's iterations
+per second and the warnings the Trainer logged; plus ``metrics.jsonl``,
+``cameras.json`` and the console log ``train.log``.
+
+Each render's instance count is kept as a running maximum on the device
+(no host read during the run).
+
+Exits non-zero when a command fails; ``summary.json`` is written first
+when the failure is the final pose BA's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import shutil
+import subprocess
+import tempfile
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from ..ops import render as render_mod
+from . import make_fullres_dataset, run_config34
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def progressive_iterations(cfg, n_frames: int, sample_rate: int = 8) -> int:
+    """Optimizer iterations of ``Trainer.progressive_run`` on a sequence
+    loaded at ``sample_rate`` (test frames sample_rate // 2 ::
+    sample_rate): tracking on every frame but 0, first_frame_mapping_iters
+    on frame 0 and mapping_iters on every other train frame."""
+    test = set(range(sample_rate // 2, n_frames, sample_rate))
+    mapped = [t for t in range(1, n_frames) if t not in test]
+    return (cfg.tracking_iters * (n_frames - 1) + cfg.first_frame_mapping_iters
+            + cfg.mapping_iters * len(mapped))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--results", required=True)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the full-scale run is for the "
+                           "card")
+    frames, train_frames, global_iters = 60, 46, 30000
+    smi = smi_line()
+    results = Path(args.results)
+    results.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="fullscale_"))
+    data, out = work / "data", work / "run"
+    argv34 = ["--data", str(data), "--out", str(out),
+              "--frames", str(train_frames), "--depth_prior", "metric",
+              "--rebin_every", "4", "--global_iters", str(global_iters),
+              "--global_chunk", "250", "--tracking_gn_iters", "8",
+              "--save_ckpt", "--pose_ba_final", "1", "--budget_s", "2700",
+              "--device", "cuda"]
+
+    # the largest instance count of any render, kept on the device
+    peak_inst = {"n": None}
+    real_rasterize = render_mod.rasterize
+
+    def rasterize_spy(*a, **kw):
+        res = real_rasterize(*a, **kw)
+        n = res["num_instances"].to(torch.int64)
+        peak_inst["n"] = n if peak_inst["n"] is None else torch.maximum(
+            peak_inst["n"], n)
+        return res
+
+    log_path = results / "train.log"
+    info = {"nvidia_smi": smi, "torch": torch.__version__,
+            "cuda": torch.version.cuda, "make_fullres_dataset_argv":
+            ["--frames", str(frames)], "run_config34_argv": argv34}
+    error = None
+    t0 = time.time()
+    with open(log_path, "w", buffering=1) as log, \
+            contextlib.redirect_stdout(log):
+        print(smi, flush=True)
+        gen_stats = make_fullres_dataset.main(
+            ["--out", str(data), "--frames", str(frames),
+             "--device", "cuda"])
+        info["dataset"] = gen_stats
+        torch.cuda.reset_peak_memory_stats()
+        render_mod.rasterize = rasterize_spy
+        try:
+            run_config34.main(argv34)
+        except Exception:       # recorded below; the exit code says so
+            error = traceback.format_exc()
+            print(error, flush=True)
+        finally:
+            render_mod.rasterize = real_rasterize
+    info["seconds_total"] = time.time() - t0
+    torch.cuda.synchronize()
+    info["peak_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    if peak_inst["n"] is not None:
+        info["num_instances_max_training"] = int(peak_inst["n"])
+    lines = log_path.read_text().splitlines()
+    info["warnings_logged"] = [ln for ln in lines if "WARNING" in ln]
+    info["nonfinite_logged"] = [ln for ln in lines if "NONFINITE" in ln]
+    if error is not None:
+        info["error"] = error
+
+    it = progressive_iterations(run_config34.TrainConfig(), train_frames)
+    for name in ("summary.json", "summary_ba.json"):
+        path = out / name
+        if not path.exists():
+            continue
+        s = json.loads(path.read_text())
+        s.update(info, progressive_iterations=it,
+                 progressive_iterations_per_s=it / max(s["progressive_s"],
+                                                       1e-9),
+                 global_iterations_per_s=s["global_iters_done"]
+                 / max(s["global_s"], 1e-9))
+        (results / name).write_text(json.dumps(s, indent=1) + "\n")
+    for name in ("metrics.jsonl", "cameras.json"):
+        if (out / name).exists():
+            shutil.copy(out / name, results / name)
+    if not (results / "summary.json").exists():
+        (results / "summary.json").write_text(json.dumps(info, indent=1))
+    shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({k: info[k] for k in ("nvidia_smi", "seconds_total")}
+                     | {"error": error is not None}), flush=True)
+    return 1 if error is not None else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

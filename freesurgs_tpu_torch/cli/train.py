@@ -6,8 +6,9 @@
   ... --run_start_checkpoint <ckpt-dir>    # or "latest"
 
 The flags are the JAX CLI's (``io/config.py``). ``--run_visualize true``
-without viser installed runs headless, as the JAX CLI does; with viser
-installed it raises, since the viewer is not ported. The run writes
+starts the web viewer (``viz/viewer.GSViewer``) on ``--run_port`` when
+viser is installed, with path exports under ``<model_path>/render_path``,
+and runs headless without it, as the JAX CLI does. The run writes
 ``config.json``, ``metrics.jsonl``, ``panels/*.png``, ``ckpt_progressive``,
 ``ckpt_final`` and ``point_cloud.ply`` under ``--run_model_path``. It runs
 on the card; ``--run_platform cpu`` runs it on the CPU, and without a CUDA
@@ -17,7 +18,6 @@ device it fails rather than falling back.
 from __future__ import annotations
 
 import argparse
-import importlib
 import os
 import sys
 
@@ -30,6 +30,7 @@ from ..io.ply import field_to_ply
 from ..train.loop import Trainer
 from ..train.steps import check_supported
 from ..utils.logging import MetricsLogger
+from ..viz.viewer import GSViewer
 
 
 def parse(argv, description: str,
@@ -51,20 +52,7 @@ def parse(argv, description: str,
     return cfg, args
 
 
-def viser_installed() -> bool:
-    try:
-        importlib.import_module("viser")
-    except ImportError:
-        return False
-    return True
-
-
 def run(cfg: Config, logger: MetricsLogger) -> int:
-    if cfg.run.visualize:
-        if viser_installed():
-            raise NotImplementedError(
-                "--run_visualize: the viewer (viz/) is ROADMAP Queue 1 item 5")
-        logger.info("viser not installed; running headless")
     seq = load_scared(cfg.data.source_path, cfg.data.frame_start,
                       cfg.data.frame_end, cfg.data.sample_rate,
                       depth_prior=cfg.data.depth_prior)
@@ -80,6 +68,18 @@ def run(cfg: Config, logger: MetricsLogger) -> int:
         log_fn=logger.info, checkpoint_dir=out,
         checkpoint_every=cfg.run.checkpoint_every,
         panel_fn=logger.log_image, device=cfg.device())
+
+    if cfg.run.visualize:
+        viewer = GSViewer.create(
+            cfg.run.port, lambda: trainer.field,
+            lambda: trainer.poses.w2c(trainer.cur_frame), seq.cam,
+            max_instances=cfg.run.max_instances,
+            get_frame_pose=lambda t: trainer.poses.w2c(t),
+            num_frames=seq.num_frames,
+            export_dir=os.path.join(out, "render_path"))
+        if viewer is None:
+            logger.info("viser not installed; running headless")
+        trainer.viewer = viewer
 
     if cfg.run.start_checkpoint:
         ckpt = cfg.run.start_checkpoint

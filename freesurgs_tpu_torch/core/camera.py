@@ -9,9 +9,15 @@ dataclass, like the JAX one.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
+
+
+def focal2fov(focal: float, pixels: int) -> float:
+    """Reference: ``utils/graphics_utils.py:128-132``."""
+    return 2.0 * math.atan(pixels / (2.0 * focal))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +34,14 @@ class Camera:
     znear: float = 0.01
     zfar: float = 100.0
     near_cull: float = 0.2
+
+    @property
+    def fov_x(self) -> float:
+        return focal2fov(self.fx, self.width)
+
+    @property
+    def fov_y(self) -> float:
+        return focal2fov(self.fy, self.height)
 
     @property
     def tan_fov_x(self) -> float:

@@ -37,6 +37,10 @@ class SyntheticScene(NamedTuple):
     depths: torch.Tensor        # (T, H, W)
     monodeps: torch.Tensor      # (T, H, W)
     flows_fw: torch.Tensor      # (T-1, 2, H, W)
+    # each frame's render: instances binned, and instances dropped at the
+    # max_instances_cap (0 below it); (T,) on the device
+    num_instances: torch.Tensor | None = None
+    overflow: torch.Tensor | None = None
 
 
 def _smooth_trajectory(num_frames: int, seed: int, rot_mag=0.02,
@@ -115,7 +119,7 @@ def make_scene(num_frames: int = 8, n_gaussians: int = 600,
     gt_w2c = build_w2c(gt_q, gt_t)
     args = (t(means), t(quats), t(log_scales), t(logit_op), sh)
 
-    colors, depths = [], []
+    colors, depths, inst, ovf = [], [], [], []
     with torch.no_grad():
         for i in range(num_frames):
             out = render(*args, gt_w2c[i], cam)
@@ -124,6 +128,8 @@ def make_scene(num_frames: int = 8, n_gaussians: int = 600,
                                  "shrink scale_range")
             colors.append(torch.clamp(out["render"], 0.0, 1.0))
             depths.append(out["render_dep"])
+            inst.append(out["num_instances"])
+            ovf.append(out["overflow"])
         colors = torch.stack(colors)
         depths = torch.stack(depths)
         monodeps = _monodeps(depths)
@@ -134,7 +140,8 @@ def make_scene(num_frames: int = 8, n_gaussians: int = 600,
                           log_scales=args[2], logit_opacity=args[3], sh=sh,
                           gt_w2c=gt_w2c, gt_quats=gt_q, gt_trans=gt_t,
                           colors=colors, depths=depths, monodeps=monodeps,
-                          flows_fw=flows)
+                          flows_fw=flows, num_instances=torch.stack(inst),
+                          overflow=torch.stack(ovf))
 
 
 def make_nonrigid_scene(num_frames: int = 8, n_gaussians: int = 600,
@@ -218,13 +225,15 @@ def make_nonrigid_scene(num_frames: int = 8, n_gaussians: int = 600,
         m = means + patch_sel[:, None] * patch_disp(t)[None, :]
         return t_(np.concatenate([m, spec_local + spec_pos(t)[None, :]]))
 
-    colors, depths, mem_p, mem_s = [], [], [], []
+    colors, depths, mem_p, mem_s, inst, ovf = [], [], [], [], [], []
     with torch.no_grad():
         for i in range(num_frames):
             m_t = means_at(i)
             out = render(m_t, all_quats, all_ls, all_op, sh, gt_w2c[i], cam)
             colors.append(torch.clamp(out["render"], 0.0, 1.0))
             depths.append(out["render_dep"])
+            inst.append(out["num_instances"])
+            ovf.append(out["overflow"])
             memb = render(m_t, all_quats, all_ls, all_op, ind_sh, gt_w2c[i],
                           cam, bg=black)["render"]
             mem_p.append(torch.clamp(memb[0], 0.0, 1.0))
@@ -252,7 +261,8 @@ def make_nonrigid_scene(num_frames: int = 8, n_gaussians: int = 600,
                            log_scales=all_ls, logit_opacity=all_op, sh=sh,
                            gt_w2c=gt_w2c, gt_quats=gt_q, gt_trans=gt_t,
                            colors=colors, depths=depths, monodeps=monodeps,
-                           flows_fw=flows)
+                           flows_fw=flows, num_instances=torch.stack(inst),
+                           overflow=torch.stack(ovf))
     aux = {"member_patch": mem_p, "member_spec": mem_s,
            "nonrigid_mask": (mem_p + mem_s) > 0.3}
     return scene, aux

@@ -48,7 +48,7 @@ class RunConfig:
     seed: int = 6666
     test: bool = False
     start_checkpoint: str = ""    # a checkpoint directory, or "latest"
-    visualize: bool = False       # headless without viser; raises with it
+    visualize: bool = False       # the web viewer; headless without viser
     port: int = 6009
     log_metrics: bool = True
     global_chunk: int = 100

@@ -19,9 +19,14 @@ for every test view it validates; each panel is one more render.
 
 ``pose_init="pnp"`` initializes each frame t > 1 by RANSAC PnP on the
 flow matches against frame t-1's cached depth (``models/pose.py``) instead
-of the constant-velocity extrapolation. The viewer waits for a later slice
-(ROADMAP.md, Queue 1 item 5) and raises when asked for. A render that drops
-instances at the ``max_instances_cap`` cap is logged as a warning.
+of the constant-velocity extrapolation. A render that drops instances at
+the ``max_instances_cap`` cap is logged as a warning.
+
+With a ``viewer`` (``viz/viewer.GSViewer``, or any object with
+``wait_if_paused`` and optionally ``report``) each progressive frame and
+each global chunk ends with a ``StepTimer`` stop, which synchronizes the
+card, and a viewer tick: ``report(rays_per_sec, frame)``, then
+``wait_if_paused()``. Without one, neither runs and no host sync is added.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..models.gaussians import GaussianField, from_rgbd, grow_capacity
 from ..models.pose import PoseTable, identity_poses
 from ..ops.render import render
 from ..utils.image import add_label, colorize_depth, colorize_flow, hcat
+from ..utils.profiling import StepTimer
 from .optim import AdamState, adam_init
 from .steps import MappingState, TrainConfig, check_supported, \
     mapping_chunk, tracking_loop
@@ -79,7 +85,9 @@ class Trainer:
     log_fn: Any = print
     checkpoint_dir: str | None = None     # periodic global-stage saves
     checkpoint_every: int = 5000
-    viewer: Any = None                    # ROADMAP Queue 1 item 5
+    viewer: Any = None                    # viz/viewer.GSViewer (or any
+                                          # object with wait_if_paused
+                                          # and optionally report)
     pose_init: str = "const_velocity"     # or "pnp"
     cache_test_frames: bool = True        # render an unmapped test frame
                                           # into the caches (False: leave
@@ -106,9 +114,6 @@ class Trainer:
         if self.pose_init not in ("const_velocity", "pnp"):
             raise ValueError(f"pose_init={self.pose_init!r}: "
                              "'const_velocity' or 'pnp'")
-        if self.viewer is not None:
-            raise NotImplementedError(
-                "the viewer (viz/) is ROADMAP Queue 1 item 5")
         check_supported(self.cfg)
         dev = torch.device(self.device)
         seq = self.seq
@@ -159,6 +164,7 @@ class Trainer:
         # so that the cadences see the total.
         self._global_rng = np.random.default_rng(self.seed + 1)
         self._global_done = 0
+        self.cur_frame = 0        # the viewer's anchor: the latest frame
 
     @property
     def field(self) -> GaussianField:
@@ -247,6 +253,14 @@ class Trainer:
                         f"({where}): suffix tiles render EMPTY — quality is "
                         "compromised while this persists")
 
+    def _viewer_tick(self, rays_per_sec: float | None = None):
+        v = self.viewer
+        if v is None:
+            return
+        if hasattr(v, "report"):
+            v.report(rays_per_sec=rays_per_sec, frame=self.cur_frame)
+        v.wait_if_paused()
+
     def track_frame(self, t: int):
         if t > 1 and self.pose_init == "pnp":
             self.poses = posemod.pnp_pose_init(
@@ -270,14 +284,18 @@ class Trainer:
 
     def progressive_run(self):
         i_train = set(int(i) for i in np.asarray(self.seq.i_train))
+        timer = StepTimer(self.cam.height, self.cam.width)
         t0 = time.time()
         for t in range(self.num_frames):
             t_frame = time.time()
+            timer.start()
+            self.cur_frame = t
             metrics: dict = {}
             overflow = []       # instances dropped at the cap, every render
             if t > 0:
                 metrics = self.track_frame(t)
-                overflow.append(metrics["overflow"])
+                if "overflow" in metrics:
+                    overflow.append(metrics["overflow"])
             if t not in i_train and self.cache_test_frames:
                 # an unmapped (test) frame: render it into the caches so
                 # the next frame's flow loss and GN solve have a depth
@@ -318,6 +336,9 @@ class Trainer:
             if t in i_train and aux["keyframe_views"] is not None:
                 row["keyframe_views"] = aux["keyframe_views"].tolist()
             self.history.append(row)
+            if self.viewer is not None:
+                timer.stop(sync_on=self.state.field.num_active)
+                self._viewer_tick(timer.rays_per_sec)
             if t % 10 == 0:
                 self.log_fn(f"[progressive {t}/{self.num_frames}] "
                             + " ".join(f"{k}={float(v):.4g}"
@@ -339,9 +360,11 @@ class Trainer:
         rng = self._global_rng
         with torch.no_grad():
             w2c_all = self.poses.all_w2c()
+        timer = StepTimer(self.cam.height, self.cam.width)
         done = 0
         t0 = time.time()
         while done < iters:
+            timer.start()
             self._update_sh_degree()
             n = min(self.global_chunk, iters - done)
             ts_np = rng.choice(i_train, size=n)
@@ -353,7 +376,11 @@ class Trainer:
                 self.cam, self.cfg, two_views=False,
                 sh_degree=self.active_sh_degree, densify_enabled=True)
             done += n
+            self.cur_frame = ts[-1]
             self._maybe_grow()
+            if self.viewer is not None:
+                timer.stop(sync_on=self.state.field.num_active)
+                self._viewer_tick(n * timer.rays_per_sec)
             self._global_done += n
             total = self._global_done
             # before the checkpoint, so that it holds the refined poses

@@ -130,30 +130,66 @@ def test_cli_refuses(tmp_path, argv, exc, match):
 @pytest.mark.parametrize("viser", [False, True])
 def test_cli_visualize(tmp_path, monkeypatch, capsys, viser):
     """--run_visualize true: without viser (both machines) cli.train logs
-    "viser not installed; running headless" and goes on to the run, as the
-    JAX train.py does (here it next fails to find frames in an empty
-    directory); with viser importable it refuses before loading any data,
-    naming the viewer's ROADMAP item, and logs no headless line."""
+    "viser not installed; running headless" and goes on to the run with no
+    viewer, as the JAX train.py does. With viser importable (a stand-in
+    module whose server is tests/test_viewer_panels.py's stub) it builds
+    the GSViewer as the root train.py:65-77 does, on --run_port, exporting
+    under <model_path>/render_path, playing back the Trainer's own poses,
+    and hands it to the Trainer. (The data is a 16x24 scene; the run is
+    stopped at the progressive stage.)"""
     import sys
     import types
-    if viser:
-        monkeypatch.setitem(sys.modules, "viser", types.ModuleType("viser"))
-    else:
-        monkeypatch.setitem(sys.modules, "viser", None)
+
+    import torch
+    from freesurgs_tpu_torch.data.synthetic import SceneSequence
+    from freesurgs_tpu_torch.data.synthetic import make_scene as tmake
+    from freesurgs_tpu_torch.train.loop import Trainer
+    from freesurgs_tpu_torch.viz.viewer import GSViewer
+
+    from test_viewer_panels import _Server
     out = tmp_path / "out"
     argv = ["--data_source_path", str(tmp_path), "--run_model_path",
-            str(out), "--run_platform", "cpu", "--run_visualize", "true"]
-    if viser:
-        with pytest.raises(NotImplementedError, match="item 5"):
-            ttrain.main(argv)
-        assert "headless" not in capsys.readouterr().out
-        assert sorted(p.name for p in out.iterdir()) == ["config.json",
-                                                         "metrics.jsonl"]
-    else:
-        with pytest.raises(FileNotFoundError, match="no frames"):
-            ttrain.main(argv)
-        assert "viser not installed; running headless" in \
-            capsys.readouterr().out
+            str(out), "--run_platform", "cpu", "--run_visualize", "true",
+            "--run_port", "6011"]
+    ports = []
+
+    def server(port, verbose):
+        ports.append(port)
+        return _Server()
+    monkeypatch.setitem(sys.modules, "viser", types.SimpleNamespace(
+        ViserServer=server) if viser else None)
+    sc = tmake(num_frames=3, n_gaussians=50, height=16, width=24, seed=1,
+               device="cpu")
+    seq = SceneSequence(sc)
+    seq.num_frames = 3
+    monkeypatch.setattr(ttrain, "load_scared", lambda *a, **k: seq)
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def stop(self):
+        seen["trainer"] = self
+        raise Stop
+    monkeypatch.setattr(Trainer, "progressive_run", stop)
+    with pytest.raises(Stop):
+        ttrain.main(argv)
+    headless = "viser not installed; running headless" in \
+        capsys.readouterr().out
+    tr = seen["trainer"]
+    if not viser:
+        assert headless and tr.viewer is None and ports == []
+        return
+    v = tr.viewer
+    assert not headless and isinstance(v, GSViewer) and ports == [6011]
+    assert v.export_dir == os.path.join(str(out), "render_path")
+    assert v.num_frames == 3 and v.cam == seq.cam
+    tr.poses = tr.poses.set_frame(2, tr.poses.quats[1],
+                                  torch.tensor([0.1, 0.0, 0.0]))
+    tr.cur_frame = 2
+    assert torch.equal(v.get_frame_pose(2), tr.poses.w2c(2))
+    assert torch.equal(v.get_pose(), tr.poses.w2c(2))
+    assert v.get_field() is tr.field
 
 
 def test_debug_nans_turns_on_anomaly_detection(tmp_path, monkeypatch):

@@ -244,12 +244,14 @@ def test_cache_test_frames(cache):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"viewer": object()}, NotImplementedError, "item 5"),
+    ({"mesh": object()}, TypeError, "mesh"),
     ({"pose_init": "sfm"}, ValueError, "pose_init='sfm'")])
 def test_features_of_later_slices_raise(kw, exc, match):
-    """The viewer is not ported: asking for it raises, naming its ROADMAP
-    item, instead of training without it; an unknown pose init raises,
-    naming it, instead of falling back to constant velocity."""
+    """The band-sharded mesh (``parallel/``, ROADMAP Queue 1 item 6) is not
+    ported: the JAX Trainer's ``mesh=`` is refused instead of training on
+    one device; an unknown pose init raises, naming it, instead of falling
+    back to constant velocity. (The viewer, refused here until it was
+    ported, is tests/test_torch_viz.py's.)"""
     sc = make_scene(num_frames=3, n_gaussians=50, height=32, width=48,
                     seed=1)
     with pytest.raises(exc, match=match):

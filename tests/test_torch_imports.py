@@ -1,12 +1,12 @@
-"""The port and ``chip_smoke.py`` run on a machine without JAX, PIL or cv2:
-importing every module of ``freesurgs_tpu_torch``, and every module that
-``chip_smoke.py`` imports (at top level or inside its functions), must load
-neither ``jax`` nor any module of the JAX package ``freesurgs_tpu``, nor
-``PIL`` nor ``cv2``.
+"""The port and ``chip_smoke.py`` run on a machine without JAX, PIL, cv2
+or viser: importing every module of ``freesurgs_tpu_torch``, and every
+module that ``chip_smoke.py`` imports (at top level or inside its
+functions), must load neither ``jax`` nor any module of the JAX package
+``freesurgs_tpu``, nor ``PIL``, ``cv2`` or ``viser``.
 
 Each case runs in a fresh interpreter where ``sys.modules[name] = None``
-for ``jax``, ``PIL`` and ``cv2``, so importing any of them raises, and then
-checks ``sys.modules`` for the JAX package.
+for ``jax``, ``PIL``, ``cv2`` and ``viser``, so importing any of them
+raises, and then checks ``sys.modules`` for the JAX package.
 """
 
 import ast
@@ -25,10 +25,18 @@ RAW_FRAMES_MODULES = {"freesurgs_tpu_torch.core.warp",
                       "freesurgs_tpu_torch.cli.produce_inputs",
                       "freesurgs_tpu_torch.models.pnp",
                       "freesurgs_tpu_torch.models.pose"}
+# The full-scale run and the viewer's render paths (the viewer imports
+# viser only when it is installed).
+FULLSCALE_VIEWER_MODULES = {"freesurgs_tpu_torch.cli.fullscale",
+                            "freesurgs_tpu_torch.cli.make_fullres_dataset",
+                            "freesurgs_tpu_torch.cli.run_config34",
+                            "freesurgs_tpu_torch.utils.profiling",
+                            "freesurgs_tpu_torch.viz.camera_path",
+                            "freesurgs_tpu_torch.viz.viewer"}
 
 _PROBE = """
 import importlib, pkgutil, sys
-for blocked in ("jax", "PIL", "cv2"):
+for blocked in ("jax", "PIL", "cv2", "viser"):
     sys.modules[blocked] = None
 sys.path.insert(0, {repo!r})
 names = {names!r}
@@ -39,7 +47,8 @@ if names is None:
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and m.split(".")[0] in ("jax", "freesurgs_tpu", "PIL", "cv2"))
+             and m.split(".")[0] in ("jax", "freesurgs_tpu", "PIL", "cv2",
+                                     "viser"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -74,4 +83,5 @@ def test_port_imports_no_jax(which):
         import freesurgs_tpu_torch as pkg
         walked = {m.name for m in pkgutil.walk_packages(
             pkg.__path__, "freesurgs_tpu_torch.")}
-        assert RAW_FRAMES_MODULES <= walked, RAW_FRAMES_MODULES - walked
+        want = RAW_FRAMES_MODULES | FULLSCALE_VIEWER_MODULES
+        assert want <= walked, want - walked
