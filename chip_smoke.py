@@ -79,10 +79,27 @@ Phases, each printing one JSON line with its seconds:
      constant-velocity init of frames 2-5 against the truth; the rigidity
      mask's precision and recall on the non-rigid pixels; the first render
      where the two runs differ, or none);
- 11. kernels — the launches by path, then one JSON line with every
+ 11. fullres — ``cli.make_fullres_dataset`` at 1280x1024 cut to 10 frames,
+     ``cli.run_config34`` (100 global iterations in chunks of 50, final
+     pose BA), then ``--resume`` from its checkpoint at 50;
+ 12. viz     — ``render_path`` over that map's camera paths, ``GSViewer`` on
+     a stub server, a Trainer with a viewer for one chunk;
+ 13. parallel — ``parallel/`` on torch.distributed: 2 ranks spawned on this
+     card (gloo, since they share it), each rendering one band of 512 rows
+     of the slice's scene through K1 / K2 / the sum. (a) the sharded render,
+     with the projection replicated and sharded over N, against the
+     single-process render; (b) ``mapping_chunk(mesh=)``,
+     ``tracking_loop(mesh=)`` with GN and a ``Trainer(mesh=)`` progressive
+     stage on 3 frames with 4 global iterations: the ranks' states bitwise
+     equal, within the Trainer gate of a Trainer without a mesh, frame 0
+     fitted; (c) ``multiseq_mapping_chunk`` on two sequences, one per rank,
+     each bitwise its single-process run; (d) ms per sharded fwd+bwd per
+     rank beside the single-process render. Launch counters reset on every
+     rank just before (a) and read just after (c), before the references;
+ 14. kernels — the launches by path, then one JSON line with every
      kernel's numbers (K1 / K2 / the sum from the slice_frame0 layout,
-     their launches summed over the slice, reuse, overlap, cli and raw
-     paths, K3 from the bench scene);
+     their launches summed over every path, the ranks' added for
+     parallel; K3 from the bench scene);
 then, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, when there is no CUDA device or
@@ -93,6 +110,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import functools
 import io
 import json
 import math
@@ -276,13 +294,20 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
         fails.append("K2 + gaussian_grad_sum: the per-Gaussian sums of two "
                      "launches differ")
     del dsum_k2, gk2
-    # the sum kernel against its plain version (the same order: bitwise)
+    # the sum kernel against its plain version (the same order: bitwise),
+    # from 0 and seeded with sums to continue (a sharded render's bands)
     g_plain = rc.gaussian_grad_sum_plain(dsum_k, seg)
     sum_err = float((gk - g_plain).abs().max())
     sum_bitwise = torch.equal(gk, g_plain)
     if not sum_bitwise:
         fails.append(f"gaussian_grad_sum differs from its plain version by "
                      f"{sum_err}")
+    seeded_bitwise = torch.equal(
+        rc.gaussian_grad_sum(dsum_k, seg, init=g_plain),
+        rc.gaussian_grad_sum_plain(dsum_k, seg, init=g_plain))
+    if not seeded_bitwise:
+        fails.append("gaussian_grad_sum seeded with sums differs from its "
+                     "plain version")
     del g_plain
     dsum_p = rc.composite_bwd_plain(feat, rect, starts, counts, gout, rank,
                                     gx, gy)
@@ -321,6 +346,7 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
           bwd_bitwise_deterministic=deterministic,
           per_gaussian_sums_bitwise_deterministic=sums_deterministic,
           gaussian_grad_sum_vs_plain_max_abs_err=sum_err,
+          gaussian_grad_sum_seeded_bitwise_plain=seeded_bitwise,
           sum_layout_is_gather_idx_grouped=layout_ok,
           sum_rank_is_inverse_of_sum_order=rank_ok,
           gaussian_grad_sum_vs_index_add_normalized_err_per_field=lib_err,
@@ -521,14 +547,13 @@ SLICE_TRAINER = dict(sh_degree_max=3, init_mask_frac=0.1, global_chunk=10)
 VAL_KEYS = ("psnr", "ssim", "lpips", "ate", "rpe_trans", "rpe_rot_deg")
 
 
-def slice_sequence(dev):
+def slice_sequence(dev, n_frames: int = 4, seed: int = 7):
     """scripts/make_fullres_dataset.py's recipe, 4 frames at 1280x1024.
     Frame 1 is a test frame: tracked and rendered into the depth cache
     (which frame 2's flow loss and GN solve read), not mapped."""
     from freesurgs_tpu_torch.data.synthetic import SceneSequence, make_scene
-    n_frames = 4
     scene = make_scene(num_frames=n_frames, n_gaussians=20000, height=1024,
-                       width=1280, seed=7, scale_range=(0.004, 0.012),
+                       width=1280, seed=seed, scale_range=(0.004, 0.012),
                        device=dev)
     seq = SceneSequence(scene, i_test=[1])
     seq.gt_poses = {"synthetic": scene.gt_w2c.cpu().numpy()}
@@ -2138,6 +2163,350 @@ def run_viz(dev, smi: str, tmp: Path) -> dict:
     return launches
 
 
+# The parallel phase: the slice's scene band-sharded over 2 ranks that
+# share this card (gloo: NCCL refuses two ranks on one device), its
+# Trainer trimmed to 3 frames (frame 1 the test frame) and 4 global
+# iterations; the second sequence of (c) is the recipe at another seed.
+PARALLEL_RANKS = 2
+PARALLEL_FRAMES = 3
+PARALLEL_GLOBAL = 4
+PARALLEL_SEEDS = (7, 8)
+PARALLEL_MAP_ITERS = 2          # (b)'s mapping_chunk, from the init field
+PARALLEL_TRACK_ITERS = 3        # (b)'s tracking_loop, after GN
+PARALLEL_MULTISEQ_ITERS = 3     # (c)
+TRAINER_GATE = (1e-3, 1e-5)     # tests/test_torch_train.py: worst, 99%
+STATE_KEYS = ("means", "quats", "log_scales", "logit_opacity", "sh_dc",
+              "sh_rest", "active", "grad_accum", "grad_denom",
+              "max_radii2d")
+
+
+def state_tensors(tr) -> list:
+    f = tr.field
+    return [getattr(f, k) for k in STATE_KEYS] + [tr.poses.quats,
+                                                  tr.poses.trans]
+
+
+def gate_errors(got, want) -> tuple[float, float]:
+    """The largest |got - want| and its 99th percentile."""
+    err = (got.float() - want.float()).abs().reshape(-1)
+    if not err.numel():
+        return 0.0, 0.0
+    k = max(1, math.ceil(0.99 * err.numel()))
+    return float(err.max()), float(err.kthvalue(k).values)
+
+
+def grad_error(got, want) -> float:
+    """The largest per-field normalized error of a gradient, its fields
+    the trailing entries of each row."""
+    n = got.shape[0]
+    return max(normalized_field_err(got.reshape(n, -1), want.reshape(n, -1)))
+
+
+def parallel_grads(render_fn, field, w2c0, cam, weights, **kw):
+    """A render of ``field`` (SH degree 3) and the gradients of a weighted
+    sum of its render, depth and T_final in the parameters, probe2d and
+    the pose."""
+    import torch
+    names = ("means", "quats", "log_scales", "logit_opacity", "sh_dc",
+             "sh_rest")
+    p = [getattr(field, k).detach().clone().requires_grad_(True)
+         for k in names]
+    probe = torch.zeros(field.capacity, 2, device=w2c0.device,
+                        requires_grad=True)
+    w2c = w2c0.detach().clone().requires_grad_(True)
+    out = render_fn(*p[:4], torch.cat(p[4:], 1), w2c, cam,
+                    active=field.active, probe2d=probe, sh_degree=3, **kw)
+    loss = (torch.sum(out["render"] * weights[0])
+            + torch.sum(out["render_dep"] * weights[1])
+            + torch.sum(out["final_T"] * weights[2]))
+    g = torch.autograd.grad(loss, p + [probe, w2c])
+    return out, dict(zip(names + ("probe2d", "w2c"), g))
+
+
+def parallel_rank(rank: int, world: int, backend: str, init_file: str,
+                  out_dir: str) -> None:
+    """One rank of the parallel phase (spawned; raises on a failed check,
+    which fails the phase)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        # this rank's card: the one card here, which both ranks share
+        res = parallel_checks(rank, torch.device(
+            "cuda", rank % torch.cuda.device_count()))
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_checks(rank: int, dev) -> dict:
+    """Everything one rank measures; run_parallel checks it."""
+    import dataclasses
+
+    import torch
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.ops.raster_ablate import cuda_ms
+    from freesurgs_tpu_torch.ops.render import render
+    from freesurgs_tpu_torch.parallel.mesh import make_mesh, \
+        same_on_all_ranks
+    from freesurgs_tpu_torch.parallel.multiseq import (
+        multiseq_mapping_chunk, shard_states, stack_states)
+    from freesurgs_tpu_torch.parallel.sharded import render_sharded_full
+    from freesurgs_tpu_torch.train.loop import Trainer
+    from freesurgs_tpu_torch.train.steps import (TrainConfig, mapping_chunk,
+                                                 tracking_loop)
+
+    def quiet_log(*a):
+        pass
+
+    t_setup = time.time()
+    mesh = make_mesh(device=dev)                        # 1 x 2: two bands
+    mesh_d = make_mesh(data_parallel=PARALLEL_RANKS, device=dev)  # 2 x 1
+    cfg = TrainConfig(**SLICE_CFG)
+    tkw = dict(SLICE_TRAINER, device=dev, validation_every=0)
+    scenes = [slice_sequence(dev, PARALLEL_FRAMES, s) for s in PARALLEL_SEEDS]
+    scene, seq = scenes[0]
+    cam = seq.cam
+    tr = Trainer(seq, cfg, mesh=mesh, log_fn=quiet_log, **tkw)
+    field0 = tr.field
+    gen = torch.Generator().manual_seed(0)
+    weights = [torch.randn(shape, generator=gen).to(dev) for shape in
+               ((3, cam.height, cam.width), (cam.height, cam.width),
+                (cam.height, cam.width))]
+    # (c)'s states: one per sequence, from a Trainer's init on it
+    seq_states = [Trainer(sq, cfg, log_fn=quiet_log, **tkw).state
+                  for _, sq in scenes]
+    gen_states = [st.generator.get_state() for st in seq_states]
+    colors_all = torch.stack([sq.colors for _, sq in scenes])
+    monodeps_all = torch.stack([sq.monodeps for _, sq in scenes])
+    w2c_all = torch.stack([sc.gt_w2c for sc, _ in scenes])
+    torch.cuda.synchronize()
+    setup_s = time.time() - t_setup
+
+    # ---- the main path, counters reset just before it
+    rc.reset_launches()
+    t_run = time.time()
+    renders = {"fwd": 0, "bwd": 0}
+    sharded = {}
+    for name, sp in (("replicated", False), ("shard_projection", True)):
+        sharded[name] = parallel_grads(
+            functools.partial(render_sharded_full, mesh,
+                              shard_projection=sp),
+            field0, scene.gt_w2c[0], cam, weights,
+            max_instances=cfg.instance_cap)
+    renders["fwd"] += 2
+    renders["bwd"] += 2
+    launches_a = dict(rc.LAUNCHES)
+
+    st0 = dataclasses.replace(
+        tr.state, generator=torch.Generator().manual_seed(1),
+        pred_depths=tr.state.pred_depths.clone(),
+        pred_colors=tr.state.pred_colors.clone())
+    st, aux = mapping_chunk(st0, tr.colors, tr.monodeps, scene.gt_w2c,
+                            [0] * PARALLEL_MAP_ITERS, [], cam, cfg,
+                            two_views=False, sh_degree=0, mesh=mesh)
+    q0, t0_ = scene.gt_quats[0], scene.gt_trans[0]
+    q1, t1, tmet = tracking_loop(
+        field0, q0, t0_, tr.colors[1], tr.state.pred_depths[0],
+        scene.gt_w2c[0], tr.flows_fw[0],
+        torch.ones(cam.height, cam.width, device=dev), cam,
+        cfg._replace(tracking_iters=PARALLEL_TRACK_ITERS), sh_degree=0,
+        mesh=mesh)
+    renders["fwd"] += PARALLEL_MAP_ITERS + PARALLEL_TRACK_ITERS
+    renders["bwd"] += PARALLEL_MAP_ITERS + PARALLEL_TRACK_ITERS
+
+    psnr_before = psnr(tr.render_frame(0)["render"], seq.colors[0])
+    t1_ = time.time()
+    tr.progressive_run()
+    tr.global_run(PARALLEL_GLOBAL)
+    torch.cuda.synchronize()
+    trainer_s = time.time() - t1_
+    psnr_after = psnr(tr.state.pred_colors[0].float(), seq.colors[0])
+    fwd, bwd, _ = progressive_counts(cfg, seq)
+    renders["fwd"] += 1 + fwd + PARALLEL_GLOBAL
+    renders["bwd"] += bwd + PARALLEL_GLOBAL
+
+    ms_state, ms_aux = multiseq_mapping_chunk(
+        mesh_d, shard_states(mesh_d, stack_states(seq_states)),
+        colors_all, monodeps_all, w2c_all,
+        torch.zeros(PARALLEL_RANKS, PARALLEL_MULTISEQ_ITERS,
+                    dtype=torch.int64), cam, cfg, sh_degree=0)
+    renders["fwd"] += PARALLEL_MULTISEQ_ITERS
+    renders["bwd"] += PARALLEL_MULTISEQ_ITERS
+    torch.cuda.synchronize()
+    run_s = time.time() - t_run
+    launches = dict(rc.LAUNCHES)
+    # ---- end of the main path
+
+    res = {"rank": rank, "setup_seconds": setup_s, "run_seconds": run_s,
+           "trainer_seconds": trainer_s, "launches": launches,
+           "launches_a": launches_a,
+           "expected_launches": launch_counts(renders["fwd"],
+                                              renders["bwd"]),
+           "init_gaussians": int(field0.num_active),
+           "map_loss": float(aux["loss"]),
+           "map_field_moved": float((st.field.means
+                                     - field0.means).abs().sum()),
+           "pose_moved": float(torch.linalg.norm(t1 - t0_)
+                               + torch.linalg.norm(q1 - q0)),
+           "gn_weight": float(tmet["gn_weight"]),
+           "psnr_frame0_before": psnr_before,
+           "psnr_frame0_after_mapping": psnr_after,
+           "active_gaussians": int(tr.field.num_active),
+           "history": [{k: float(v) for k, v in h.items()
+                        if k in ("frame", "iter", "loss", "gn_weight",
+                                 "gn_resid_px", "num_active")}
+                       for h in tr.history],
+           "multiseq_loss": ms_aux["loss"].tolist()}
+
+    # (a) against the single-process render on this card
+    ref = parallel_grads(render, field0, scene.gt_w2c[0], cam, weights,
+                         max_instances=cfg.instance_cap)
+    res["a"] = {}
+    for name, (out, grads) in sharded.items():
+        chans = [(out["render"][c].detach(), ref[0]["render"][c].detach())
+                 for c in range(3)]
+        chans += [(out[k].detach(), ref[0][k].detach())
+                  for k in ("render_dep", "render_sil", "final_T")]
+        res["a"][name] = {
+            "channel_max_abs_err": [float((a - b).abs().max())
+                                    for a, b in chans],
+            "channel_scale": [max(1.0, float(b.abs().max()))
+                              for _, b in chans],
+            "grad_normalized_err": {k: grad_error(g, ref[1][k])
+                                    for k, g in grads.items()},
+            "bitwise_image": all(torch.equal(a, b) for a, b in chans),
+            "radii_equal": torch.equal(out["radii"], ref[0]["radii"]),
+            "overflow": int(out["overflow"]),
+            "num_instances": int(out["num_instances"]),
+            "band_num_instances": out["band_num_instances"].tolist(),
+            "single_num_instances": int(ref[0]["num_instances"])}
+
+    # (b) the ranks' states, and a Trainer without a mesh (rank 0)
+    res["ranks_bitwise_equal"] = same_on_all_ranks(
+        state_tensors(tr) + [st.field.means, q1, t1])
+    if rank == 0:
+        single = Trainer(seq, cfg, log_fn=quiet_log, **tkw)
+        single.progressive_run()
+        single.global_run(PARALLEL_GLOBAL)
+        res["single_history"] = [
+            {k: float(v) for k, v in h.items()
+             if k in ("frame", "iter", "loss", "gn_weight", "gn_resid_px",
+                      "num_active")} for h in single.history]
+        res["single_active_gaussians"] = int(single.field.num_active)
+        if single.field.capacity == tr.field.capacity:
+            res["trainer_gate"] = {
+                k: gate_errors(a, b) for k, a, b in zip(
+                    STATE_KEYS + ("pose_quats", "pose_trans"),
+                    state_tensors(tr), state_tensors(single))}
+    mesh.barrier()
+
+    # (c) this rank's sequence against its single-process run
+    i = mesh_d.data_index
+    gen_i = torch.Generator()
+    gen_i.set_state(gen_states[i])
+    st_i = dataclasses.replace(
+        seq_states[i], generator=gen_i,
+        pred_depths=seq_states[i].pred_depths.clone(),
+        pred_colors=seq_states[i].pred_colors.clone())
+    sc_i, sq_i = scenes[i]
+    st_i, aux_i = mapping_chunk(st_i, sq_i.colors, sq_i.monodeps,
+                                sc_i.gt_w2c, [0] * PARALLEL_MULTISEQ_ITERS,
+                                [], cam, cfg, two_views=False, sh_degree=0)
+    res["multiseq_index"] = i
+    res["multiseq_bitwise_single"] = all(
+        torch.equal(getattr(ms_state.field, k), getattr(st_i.field, k))
+        for k in STATE_KEYS) and float(aux_i["loss"]) == \
+        res["multiseq_loss"][i]
+
+    # (d) ms per fwd+bwd: the sharded render on both ranks at once, then
+    # the single-process render on rank 0 alone
+    mesh.barrier()
+    res["sharded_fwd_bwd_ms"] = cuda_ms(lambda: parallel_grads(
+        functools.partial(render_sharded_full, mesh, shard_projection=False),
+        field0, scene.gt_w2c[0], cam, weights,
+        max_instances=cfg.instance_cap), iters=5, warmup=1)
+    mesh.barrier()
+    if rank == 0:
+        res["single_fwd_bwd_ms"] = cuda_ms(lambda: parallel_grads(
+            render, field0, scene.gt_w2c[0], cam, weights,
+            max_instances=cfg.instance_cap), iters=5, warmup=1)
+    mesh.barrier()
+    return res
+
+
+def run_parallel(dev, smi: str) -> dict:
+    """Spawn the ranks on this card, then report and check their results;
+    the parallel path's launches are the ranks' summed."""
+    import torch
+    import torch.multiprocessing as tmp
+    from freesurgs_tpu_torch.parallel.mesh import backend_for
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    backend = backend_for(PARALLEL_RANKS, dev)
+    with tempfile.TemporaryDirectory() as d:
+        tmp.start_processes(parallel_rank,
+                            args=(PARALLEL_RANKS, backend,
+                                  str(Path(d) / "init"), d),
+                            nprocs=PARALLEL_RANKS, join=True,
+                            start_method="spawn")
+        ranks = [json.loads((Path(d) / f"rank{r}.json").read_text())
+                 for r in range(PARALLEL_RANKS)]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    phase("parallel", t0, nvidia_smi=smi, backend=backend,
+          ranks=PARALLEL_RANKS, launches=launches, per_rank=ranks)
+    r0 = ranks[0]
+    for r in ranks:
+        n = r["rank"]
+        check(r["init_gaussians"] == 131_072, "expected 131,072 Gaussians")
+        check(r["launches"] == r["expected_launches"],
+              f"rank {n}: launches {r['launches']} != renders made "
+              f"{r['expected_launches']}")
+        check(r["launches_a"] == launch_counts(2, 2),
+              f"rank {n}: (a) launched {r['launches_a']}")
+        for name, a in r["a"].items():
+            check(all(e <= FWD_CHANNEL_TOL * s for e, s in
+                      zip(a["channel_max_abs_err"], a["channel_scale"])),
+                  f"rank {n} (a) {name}: channel errors "
+                  f"{a['channel_max_abs_err']}")
+            check(all(e <= BWD_FIELD_TOL
+                      for e in a["grad_normalized_err"].values()),
+                  f"rank {n} (a) {name}: gradient errors "
+                  f"{a['grad_normalized_err']}")
+            check(a["overflow"] == 0 and a["radii_equal"],
+                  f"rank {n} (a) {name}: overflow or radii")
+        check(r["map_loss"] > 1e-3 and r["map_field_moved"] > 0,
+              f"rank {n}: mapping under the mesh: loss {r['map_loss']}, "
+              f"moved {r['map_field_moved']}")
+        check(r["pose_moved"] > 0 and r["gn_weight"] >= GN_MIN_WEIGHT,
+              f"rank {n}: tracking under the mesh: pose moved "
+              f"{r['pose_moved']}, GN weight {r['gn_weight']}")
+        check(r["psnr_frame0_after_mapping"] > r["psnr_frame0_before"],
+              f"rank {n}: frame-0 PSNR did not improve")
+        check(r["ranks_bitwise_equal"], "the ranks' states differ")
+        check(r["multiseq_bitwise_single"] and r["multiseq_index"] == n,
+              f"rank {n}: its sequence differs from its single run")
+        check(r["multiseq_loss"] == r0["multiseq_loss"],
+              "the ranks gathered different multi-sequence losses")
+    check(r0["single_active_gaussians"] == r0["active_gaussians"]
+          and "trainer_gate" in r0,
+          f"the mesh Trainer ends with {r0['active_gaussians']} Gaussians, "
+          f"the Trainer without one {r0['single_active_gaussians']}")
+    check(all(w <= TRAINER_GATE[0] and q <= TRAINER_GATE[1]
+              for w, q in r0["trainer_gate"].values()),
+          f"Trainer gate: {r0['trainer_gate']}")
+    return {"parallel": launches}
+
+
 def ptxas_report(reports: dict[str, str]) -> dict:
     """Registers, shared memory and spills of each compiled kernel; the
     ablation's template instances are named by their variant."""
@@ -2211,6 +2580,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(run_fullres(dev, smi, Path(tmp)))
         paths.update(run_viz(dev, smi, Path(tmp)))
+    paths.update(run_parallel(dev, smi))
     # K1 / K2 / the sum's launches: the sum over the paths, each counted
     # alone
     for row in results["kernels"][:len(MAIN_PATH_REPLACES)]:

@@ -12,13 +12,16 @@
 // order: slot s in row sum_rank[s] (ops/binning.py sum_layout), so
 // Gaussian g's slots are the contiguous rows [start[g], start[g + 1]), in
 // ascending slot order, and padding slots lie past start[n]; start
-// (n + 1,) int32. Output: out (n, 10), row g the sum of its rows, field by
-// field.
+// (n + 1,) int32; init (n, 10) or null. Output: out (n, 10), row g the sum
+// of its rows, field by field, added to init's row g when there is one.
 //
 // Each thread owns one Gaussian and adds its rows front to back into ten
-// float accumulators starting from 0, so each sum is taken in ascending
-// slot order: the order of index_add_ on the CPU and of the plain
-// version's rank loop, bit for bit. Deterministic, no atomics.
+// float accumulators starting from 0 (or from init), so each sum is taken
+// in ascending slot order: the order of index_add_ on the CPU and of the
+// plain version's rank loop, bit for bit. Deterministic, no atomics. A sum
+// seeded with another layout's sums continues them: a band of a
+// band-sharded render (parallel/sharded.py) seeds its sums with the bands
+// above it, so the total is the single-image sum, bit for bit.
 //
 // What bounds it on an H100: the bytes (dsum's rows of the runs read once,
 // 40 B a slot; start read and out written once), against 3.35 TB/s; the
@@ -57,6 +60,7 @@ __device__ inline void copy8_async(float2* dst, const float2* src) {
 __global__ void __launch_bounds__(THREADS)
 gaussian_grad_sum_kernel(const float2* __restrict__ dsum,
                          const int* __restrict__ start,
+                         const float2* __restrict__ init,
                          float2* __restrict__ out, int n) {
   __shared__ float2 win[WROWS * H];
   const int g0 = blockIdx.x * THREADS;
@@ -67,7 +71,12 @@ gaussian_grad_sum_kernel(const float2* __restrict__ dsum,
   const int j1 = g < n ? start[g + 1] : span_end;
   float acc[NF];
 #pragma unroll
-  for (int f = 0; f < NF; ++f) acc[f] = 0.0f;
+  for (int h = 0; h < H; ++h) {
+    const float2 v = init != nullptr && g < n ? init[(size_t)g * H + h]
+                                              : make_float2(0.0f, 0.0f);
+    acc[2 * h] = v.x;
+    acc[2 * h + 1] = v.y;
+  }
 
   for (int w0 = start[g0]; w0 < span_end; w0 += WROWS) {
     const int pieces = min(WROWS, span_end - w0) * H;
@@ -101,11 +110,13 @@ gaussian_grad_sum_kernel(const float2* __restrict__ dsum,
 }  // namespace
 
 extern "C" int gaussian_grad_sum(const float* dsum, const int* start,
-                                 float* out, int n, void* stream) {
+                                 const float* init, float* out, int n,
+                                 void* stream) {
   if (n > 0) {
     gaussian_grad_sum_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
                                (cudaStream_t)stream>>>(
         reinterpret_cast<const float2*>(dsum), start,
+        reinterpret_cast<const float2*>(init),
         reinterpret_cast<float2*>(out), n);
   }
   return (int)cudaGetLastError();

@@ -21,7 +21,8 @@ The backward writes each slot's 10 gradients as one row of a sum-ordered
 ``dsum (M, 10)``: slot s goes to row ``sum_rank[s]`` of the layout
 (``ops/binning.py``), so each Gaussian's slots are the contiguous rows
 ``sum_start[g]:sum_start[g + 1]``, in ascending slot order, and padding
-slots come last. ``gaussian_grad_sum`` adds each run front to back from 0:
+slots come last. ``gaussian_grad_sum`` adds each run front to back from 0
+(or from given sums, which it then continues: a band of a sharded render):
 a fixed order, so training is reproducible from run to run on the card
 (``index_add_``'s float atomics were not).
 
@@ -335,15 +336,17 @@ def composite_bwd_plain(feat: torch.Tensor, rect: torch.Tensor,
     return dsum
 
 
-def gaussian_grad_sum_plain(dsum: torch.Tensor,
-                            start: torch.Tensor) -> torch.Tensor:
+def gaussian_grad_sum_plain(dsum: torch.Tensor, start: torch.Tensor,
+                            init: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """Plain per-Gaussian sum: (n, 10), row g the sum of the sum-ordered
-    rows ``dsum[start[g]:start[g + 1]]``, added front to back from 0 (rank
-    r of every run in one step), the kernel's order."""
+    rows ``dsum[start[g]:start[g + 1]]``, added front to back from 0, or
+    from ``init``'s row g (rank r of every run in one step), the kernel's
+    order."""
     n = start.shape[0] - 1
     st = start.to(torch.int64)
     lens = st[1:] - st[:-1]
-    out = dsum.new_zeros(n, N_FIELD)
+    out = dsum.new_zeros(n, N_FIELD) if init is None else init.clone()
     for r in range(int(lens.max()) if n else 0):
         g = torch.nonzero(lens > r).squeeze(1)
         out[g] += dsum[st[g] + r]
@@ -561,26 +564,32 @@ def composite_bwd(feat: torch.Tensor, rect: torch.Tensor,
     return dsum
 
 
-def gaussian_grad_sum(dsum: torch.Tensor,
-                      start: torch.Tensor) -> torch.Tensor:
+def gaussian_grad_sum(dsum: torch.Tensor, start: torch.Tensor,
+                      init: torch.Tensor | None = None) -> torch.Tensor:
     """Per-Gaussian sum of per-instance gradients, in a fixed order:
     (n, 10) from the sum-ordered dsum (M, 10) and start (n + 1,) int32
-    (``binning.sum_layout``)."""
+    (``binning.sum_layout``), each row's sum started from ``init``'s
+    (n, 10) row when given (it then continues init's sums, bit for
+    bit)."""
     if not dsum.is_cuda:
-        return gaussian_grad_sum_plain(dsum, start)
+        return gaussian_grad_sum_plain(dsum, start, init)
     dev = dsum.device
     m = dsum.shape[0]
     n = start.shape[0] - 1
     _check(dsum, "dsum", torch.float32, (m, N_FIELD), dev)
     _check(start, "start", torch.int32, (n + 1,), dev)
-    if dsum.data_ptr() % 8:        # rows are read as five 8 B pairs
-        raise ValueError("dsum is not 8-byte aligned")
+    for name, t in (("dsum", dsum), ("init", init)):
+        if t is not None and t.data_ptr() % 8:   # rows read as 8 B pairs
+            raise ValueError(f"{name} is not 8-byte aligned")
+    if init is not None:
+        _check(init, "init", torch.float32, (n, N_FIELD), dev)
     out = torch.empty(n, N_FIELD, dtype=torch.float32, device=dev)
-    fn = kernel_fn("gaussian_grad_sum", "gaussian_grad_sum", 3, n_int=1)
+    fn = kernel_fn("gaussian_grad_sum", "gaussian_grad_sum", 4, n_int=1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(dsum.data_ptr(), start.data_ptr(), out.data_ptr(), n,
-                 stream)
+        err = fn(dsum.data_ptr(), start.data_ptr(),
+                 None if init is None else init.data_ptr(), out.data_ptr(),
+                 n, stream)
     if err != 0:
         raise RuntimeError(f"gaussian_grad_sum launch failed: CUDA error "
                            f"{err}")
@@ -596,12 +605,14 @@ class Composite(torch.autograd.Function):
     and integer rects carry no gradient, as in the CUDA sort stage.
 
     Returns the (8, Hp, Wp) output; channels 0-6 are differentiable
-    (T_final's cotangent is the g_T of the backward kernel)."""
+    (T_final's cotangent is the g_T of the backward kernel). ``grad_sum``
+    (dsum, sum_start) -> (n, 10) is the per-Gaussian sum after K2
+    (``gaussian_grad_sum`` when None)."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, rgbz, opacity, rect16, gather_idx,
                 tile_start, tile_count, sum_rank, sum_start, grid_x,
-                grid_y):
+                grid_y, grad_sum):
         feat, rect = _records(mean2d, conic, rgbz, opacity, rect16,
                               gather_idx)
         out, keff = composite_fwd(feat, rect, tile_start, tile_count,
@@ -609,6 +620,7 @@ class Composite(torch.autograd.Function):
         ctx.save_for_backward(feat, rect, tile_start, tile_count, keff, out,
                               sum_rank, sum_start)
         ctx.grid = (grid_x, grid_y)
+        ctx.grad_sum = grad_sum or gaussian_grad_sum
         return out
 
     @staticmethod
@@ -619,9 +631,9 @@ class Composite(torch.autograd.Function):
         dsum = composite_bwd(feat, rect, starts, counts, keff, out,
                              gout.contiguous(), sum_rank, gx, gy)
         # per-Gaussian sum in a fixed order; padding rows are in no run
-        dsrc = gaussian_grad_sum(dsum, sum_start)
+        dsrc = ctx.grad_sum(dsum, sum_start)
         return (dsrc[:, 0:2], dsrc[:, 2:5], dsrc[:, 6:10], dsrc[:, 5],
-                None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None)
 
 
 # ------------------------------------------------------ the layout carry
@@ -699,12 +711,14 @@ def instance_records(proj: ProjectedGaussians, rgbz: torch.Tensor,
 
 def rasterize(proj: ProjectedGaussians, rgbz: torch.Tensor,
               opacity: torch.Tensor, cfg: RasterConfig,
-              bins: TileBins | None = None):
+              bins: TileBins | None = None, grad_sum=None):
     """Rasterize projected Gaussians through the compositing kernels.
 
     rgbz: (N, 4) per-Gaussian [r, g, b, z]; opacity: (N,) in [0, 1].
     bins: a carried layout to reuse (see the layout carry above); None
-    bins fresh.
+    bins fresh. grad_sum: the backward's per-Gaussian sum
+    (``Composite``; a band of a sharded render continues the bands above
+    it, ``parallel/sharded.py``).
     Returns {"image": (6, H, W) [r, g, b, z, sil, z^2] without background,
     "final_T": (H, W), "overflow": () instances dropped at the cap (on a
     carried layout: ``_reuse_overflow``), "num_instances": () instances in
@@ -719,7 +733,7 @@ def rasterize(proj: ProjectedGaussians, rgbz: torch.Tensor,
     out = Composite.apply(proj_b.mean2d, proj_b.conic, rgbz, opacity,
                           proj_b.tile_rect, bins.gather_idx, bins.tile_start,
                           bins.tile_count, bins.sum_rank, bins.sum_start,
-                          cfg.grid_x, cfg.grid_y)
+                          cfg.grid_x, cfg.grid_y, grad_sum)
     out = out[:, :cfg.height, :cfg.width]
     return {"image": out[0:6], "final_T": out[6], "overflow": overflow,
             "num_instances": bins.num_instances, "bins": bins}

@@ -27,6 +27,14 @@ With a ``viewer`` (``viz/viewer.GSViewer``, or any object with
 each global chunk ends with a ``StepTimer`` stop, which synchronizes the
 card, and a viewer tick: ``report(rays_per_sec, frame)``, then
 ``wait_if_paused()``. Without one, neither runs and no host sync is added.
+
+With a ``mesh`` (``parallel/mesh.make_mesh``) every rank of the mesh runs
+the same Trainer: tracking and mapping renders are band-sharded over its
+tiles group (``parallel/sharded.py``), so the ranks' states stay bitwise
+equal; validation, ``render_frame``, panels and pose BA stay single-rank
+renders, replicated, as in JAX. Only rank 0 writes checkpoints,
+metrics.jsonl rows and panels, and every rank waits at a barrier after
+each save.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from ..models import pose as posemod
 from ..models.gaussians import GaussianField, from_rgbd, grow_capacity
 from ..models.pose import PoseTable, identity_poses
 from ..ops.render import render
+from ..parallel.mesh import Mesh
 from ..utils.image import add_label, colorize_depth, colorize_flow, hcat
 from ..utils.profiling import StepTimer
 from .optim import AdamState, adam_init
@@ -85,6 +94,9 @@ class Trainer:
     log_fn: Any = print
     checkpoint_dir: str | None = None     # periodic global-stage saves
     checkpoint_every: int = 5000
+    mesh: Mesh | None = None              # parallel/mesh.Mesh: band-sharded
+                                          # tracking and mapping (None: one
+                                          # process)
     viewer: Any = None                    # viz/viewer.GSViewer (or any
                                           # object with wait_if_paused
                                           # and optionally report)
@@ -114,6 +126,9 @@ class Trainer:
         if self.pose_init not in ("const_velocity", "pnp"):
             raise ValueError(f"pose_init={self.pose_init!r}: "
                              "'const_velocity' or 'pnp'")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(f"mesh must be a freesurgs_tpu_torch.parallel."
+                            f"mesh.Mesh, not {type(self.mesh).__name__}")
         check_supported(self.cfg)
         dev = torch.device(self.device)
         seq = self.seq
@@ -169,6 +184,12 @@ class Trainer:
     @property
     def field(self) -> GaussianField:
         return self.state.field
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes files: rank 0 of a mesh, or the one
+        process without one."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def _maybe_grow(self):
         """Grow capacity 2x (in 4096 quanta, up to max_capacity) when the
@@ -232,7 +253,8 @@ class Trainer:
         self.state, aux = mapping_chunk(
             self.state, self.colors, self.monodeps, w2c_all, [t] * n_iters,
             self.keyframes, self.cam, self.cfg, two_views=two_views,
-            sh_degree=self.active_sh_degree, densify_enabled=True)
+            sh_degree=self.active_sh_degree, densify_enabled=True,
+            mesh=self.mesh)
         return aux
 
     def _flush_history(self):
@@ -240,8 +262,9 @@ class Trainer:
         a metrics_logger); called at the log cadence."""
         if self.metrics_logger is None:
             return
-        for row in self.history[self._history_flushed:]:
-            self.metrics_logger.log(row)
+        if self._writes:
+            for row in self.history[self._history_flushed:]:
+                self.metrics_logger.log(row)
         self._history_flushed = len(self.history)
 
     def _warn_overflow(self, overflow: float, where: str):
@@ -278,7 +301,7 @@ class Trainer:
             self.field, self.poses.quats[t], self.poses.trans[t],
             self.colors[t], self.state.pred_depths[t - 1], prev_w2c,
             self.flows_fw[t - 1], rigid, self.cam, self.cfg,
-            sh_degree=self.active_sh_degree)
+            sh_degree=self.active_sh_degree, mesh=self.mesh)
         self.poses = self.poses.set_frame(t, q, tr)
         return metrics
 
@@ -374,7 +397,8 @@ class Trainer:
             self.state, aux = mapping_chunk(
                 self.state, self.colors, self.monodeps, w2c_all, ts, [],
                 self.cam, self.cfg, two_views=False,
-                sh_degree=self.active_sh_degree, densify_enabled=True)
+                sh_degree=self.active_sh_degree, densify_enabled=True,
+                mesh=self.mesh)
             done += n
             self.cur_frame = ts[-1]
             self._maybe_grow()
@@ -458,8 +482,8 @@ class Trainer:
         """Hand ``panel_fn`` frame t's labelled render | gt | depth |
         monodep | flow panel (no flow for the last frame), named
         ``<name>_f<t:04d>``, at the current iteration (no-op without a
-        panel_fn)."""
-        if self.panel_fn is None:
+        panel_fn, and on a mesh's ranks but 0)."""
+        if self.panel_fn is None or not self._writes:
             return
         out = self.render_frame(t)
 
@@ -522,8 +546,13 @@ class Trainer:
 
     # ------------------------------------------------------- persistence
     def save(self, path: str):
-        save_checkpoint(path, self._ckpt_tree(self.capture()),
-                        self.state.iteration, meta=self._shape_meta())
+        """Write a checkpoint (on a mesh: rank 0 writes, every rank waits
+        until it has)."""
+        if self._writes:
+            save_checkpoint(path, self._ckpt_tree(self.capture()),
+                            self.state.iteration, meta=self._shape_meta())
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def capture(self) -> dict:
         return {"state": self.state, "poses": self.poses,

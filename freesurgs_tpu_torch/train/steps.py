@@ -11,7 +11,9 @@ Weights and schedules are the reference's (train.py):
 
 Where the JAX package scans a whole loop inside one jitted call, these are
 Python loops of eager PyTorch; every render goes through the compositing
-kernels (``ops/raster_cuda.py``) on the card.
+kernels (``ops/raster_cuda.py``) on the card. With a ``mesh``
+(``parallel/mesh.py``) every render is band-sharded over its tiles group
+(``parallel/sharded.py``) and the binning-layout carry is off, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..core.camera import Camera
 from ..core.transforms import build_w2c
 from ..models.gaussians import PARAM_NAMES, GaussianField
 from ..ops.render import DEFAULT_MAX_INSTANCES, render
+from ..parallel.sharded import render_sharded_full
 from . import losses
 from .densify import (DensifyConfig, add_render_stats, densify_and_prune,
                       reset_opacity, split_noise)
@@ -113,16 +116,28 @@ def _finite(g: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
 
 
+def _render(mesh, means, quats, log_scales, logit_opacity, sh, w2c, cam, *,
+            bins=None, rebin=None, **kw):
+    """``render``, or with a mesh its band-sharded counterpart (JAX
+    ``steps.py:151-165`` / ``_render_view``), which carries no layout."""
+    if mesh is None:
+        return render(means, quats, log_scales, logit_opacity, sh, w2c, cam,
+                      bins=bins, rebin=rebin, **kw)
+    return render_sharded_full(mesh, means, quats, log_scales, logit_opacity,
+                               sh, w2c, cam, **kw)
+
+
 # ------------------------------------------------------------- tracking
 
 def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
                   prev_w2c, flow_fw_prev, rigid_mask, cam: Camera,
-                  cfg: TrainConfig, sh_degree: int = 0):
+                  cfg: TrainConfig, sh_degree: int = 0, mesh=None):
     """Optimize one frame's (quat, trans) for cfg.tracking_iters Adam steps
     with the Gaussians frozen. Returns (quat, trans, metrics).
 
     With cfg.rebin_tracking_every > 1 the binning layout is carried across
-    iterations and rebuilt when i % rebin_tracking_every == 0.
+    iterations and rebuilt when i % rebin_tracking_every == 0, unless a
+    ``mesh`` band-shards the renders (the carry is then off).
 
     With cfg.tracking_gn_iters > 0 the pose is first refined by the
     Gauss-Newton flow-PnP solve (train/flow_pnp.py) on the same inputs as
@@ -143,18 +158,18 @@ def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
     overflow_max = torch.zeros((), device=dev)
     zero = torch.zeros((), device=dev)
     last = (zero, zero, zero)      # JAX's fori_loop carry: zeros at 0 iters
-    carry = cfg.rebin_tracking_every > 1
+    carry = cfg.rebin_tracking_every > 1 and mesh is None
     bins = None
     for i in range(cfg.tracking_iters):
         q = pose["q"].requires_grad_(True)
         t = pose["t"].requires_grad_(True)
         w2c = build_w2c(q, t)
-        out = render(field.means, field.quats, field.log_scales,
-                     field.logit_opacity, sh, w2c, cam, active=field.active,
-                     sh_degree=sh_degree, max_instances=cfg.instance_cap,
-                     gs_grad=False, cam_grad=True, bins=bins,
-                     rebin=(i % cfg.rebin_tracking_every == 0) if carry
-                     else None)
+        out = _render(mesh, field.means, field.quats, field.log_scales,
+                      field.logit_opacity, sh, w2c, cam, active=field.active,
+                      sh_degree=sh_degree, max_instances=cfg.instance_cap,
+                      gs_grad=False, cam_grad=True, bins=bins,
+                      rebin=(i % cfg.rebin_tracking_every == 0) if carry
+                      else None)
         bins = out.get("bins")
         overflow_max = torch.maximum(overflow_max,
                                      out["overflow"].to(torch.float32))
@@ -219,7 +234,7 @@ def _overlap_keyframe(monodeps_all, w2c_all, cur_t, kf, cam, gen):
 def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
                   cur_ts, keyframes, cam: Camera, cfg: TrainConfig,
                   two_views: bool, sh_degree: int,
-                  densify_enabled: bool = True):
+                  densify_enabled: bool = True, mesh=None):
     """Run ``len(cur_ts)`` mapping iterations.
 
     cur_ts: the frame mapped at each iteration (host ints). two_views adds a
@@ -240,7 +255,9 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
     the chunk's keyframe draws are made up front and sorted, and the
     keyframe view rebins on force | a new keyframe | k % rebin_every == 0;
     under "overlap" it bins fresh every iteration. No carry outlives the
-    call (capacity grows between calls).
+    call (capacity grows between calls). A ``mesh`` band-shards every
+    render over its tiles group and turns the carry off (JAX
+    ``steps.py:442``).
     Returns (state, aux) with last-iteration and chunk diagnostics;
     aux["keyframe_views"] is the (n,) frames of the keyframe view, None in
     one-view chunks.
@@ -265,7 +282,7 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
     first_nf = torch.tensor(n_it, device=dev)    # n_it: none
     loss = terms = None
 
-    amortize = cfg.rebin_every > 1
+    amortize = cfg.rebin_every > 1 and mesh is None
     overlap = two_views and cfg.keyframe_policy == "overlap"
     if amortize and two_views and not overlap:
         # sorted draws: the same multiset, grouped so that runs of one
@@ -286,12 +303,12 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
         period = amortize and it_idx % cfg.rebin_every == 0
 
         def view(t_idx, probe_t, bins_c, rebin):
-            out = render(params["means"], params["quats"],
-                         params["log_scales"], params["logit_opacity"], sh,
-                         w2c_all[t_idx], cam, active=field.active,
-                         probe2d=probe_t, sh_degree=sh_degree,
-                         max_instances=cfg.instance_cap, gs_grad=True,
-                         cam_grad=False, bins=bins_c, rebin=rebin)
+            out = _render(mesh, params["means"], params["quats"],
+                          params["log_scales"], params["logit_opacity"], sh,
+                          w2c_all[t_idx], cam, active=field.active,
+                          probe2d=probe_t, sh_degree=sh_degree,
+                          max_instances=cfg.instance_cap, gs_grad=True,
+                          cam_grad=False, bins=bins_c, rebin=rebin)
             rgb = cfg.w_rgb_mapping * losses.rgb_loss(out["render"],
                                                       colors_all[t_idx])
             mono = monodeps_all[t_idx]

@@ -247,16 +247,49 @@ def test_cache_test_frames(cache):
     ({"mesh": object()}, TypeError, "mesh"),
     ({"pose_init": "sfm"}, ValueError, "pose_init='sfm'")])
 def test_features_of_later_slices_raise(kw, exc, match):
-    """The band-sharded mesh (``parallel/``, ROADMAP Queue 1 item 6) is not
-    ported: the JAX Trainer's ``mesh=`` is refused instead of training on
+    """A ``mesh`` that is not a ``parallel.mesh.Mesh`` (the JAX Trainer's
+    takes a jax Mesh) raises a TypeError naming it instead of training on
     one device; an unknown pose init raises, naming it, instead of falling
     back to constant velocity. (The viewer, refused here until it was
-    ported, is tests/test_torch_viz.py's.)"""
+    ported, is tests/test_torch_viz.py's; the mesh on several ranks is
+    tests/test_torch_parallel.py's.)"""
     sc = make_scene(num_frames=3, n_gaussians=50, height=32, width=48,
                     seed=1)
     with pytest.raises(exc, match=match):
         TTrainer(Seq(sc, tcam(sc.cam)), ts.TrainConfig(), device="cpu",
                  **kw)
+
+
+def test_single_rank_mesh_trainer_is_bitwise_the_plain_one():
+    """A Trainer on the one-rank CPU mesh of ``make_mesh()`` (no process
+    group: one band, no collective) runs 2 frames and a global chunk
+    through the band-sharded render and ends bitwise where the Trainer
+    without a mesh does."""
+    from freesurgs_tpu_torch.data.synthetic import SceneSequence
+    from freesurgs_tpu_torch.data.synthetic import make_scene as tmake
+    from freesurgs_tpu_torch.parallel.mesh import make_mesh
+    sc = tmake(num_frames=2, n_gaussians=150, height=32, width=48, seed=2,
+               device="cpu")
+    cfg = ts.TrainConfig(tracking_iters=2, mapping_iters=2,
+                         first_frame_mapping_iters=3, tracking_gn_iters=2)
+    runs = []
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # tiny tensors; the suite runs workers
+    try:
+        for mesh in (None, make_mesh(device="cpu")):
+            tr = TTrainer(SceneSequence(sc), cfg, mesh=mesh, sh_degree_max=0,
+                          capacity=4096, global_chunk=2, validation_every=0,
+                          device="cpu", log_fn=lambda *a: None)
+            tr.progressive_run()
+            tr.global_run(2)
+            runs.append(tr)
+    finally:
+        torch.set_num_threads(n_threads)
+    a, b = runs
+    for k in PARAMS + ("grad_accum", "grad_denom", "max_radii2d"):
+        assert torch.equal(getattr(a.field, k), getattr(b.field, k)), k
+    assert torch.equal(a.poses.quats, b.poses.quats)
+    assert torch.equal(a.poses.trans, b.poses.trans)
 
 
 def test_overflow_at_the_cap_is_logged():

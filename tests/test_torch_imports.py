@@ -33,6 +33,13 @@ FULLSCALE_VIEWER_MODULES = {"freesurgs_tpu_torch.cli.fullscale",
                             "freesurgs_tpu_torch.utils.profiling",
                             "freesurgs_tpu_torch.viz.camera_path",
                             "freesurgs_tpu_torch.viz.viewer"}
+# The mesh on torch.distributed (band-sharded rendering, multi-sequence
+# mapping, the dry run torchrun starts).
+PARALLEL_MODULES = {"freesurgs_tpu_torch.parallel",
+                    "freesurgs_tpu_torch.parallel.mesh",
+                    "freesurgs_tpu_torch.parallel.sharded",
+                    "freesurgs_tpu_torch.parallel.multiseq",
+                    "freesurgs_tpu_torch.parallel.dryrun"}
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -83,5 +90,6 @@ def test_port_imports_no_jax(which):
         import freesurgs_tpu_torch as pkg
         walked = {m.name for m in pkgutil.walk_packages(
             pkg.__path__, "freesurgs_tpu_torch.")}
-        want = RAW_FRAMES_MODULES | FULLSCALE_VIEWER_MODULES
+        want = (RAW_FRAMES_MODULES | FULLSCALE_VIEWER_MODULES
+                | PARALLEL_MODULES)
         assert want <= walked, want - walked
