@@ -84,7 +84,18 @@ Phases, each printing one JSON line with its seconds:
      pose BA), then ``--resume`` from its checkpoint at 50;
  12. viz     — ``render_path`` over that map's camera paths, ``GSViewer`` on
      a stub server, a Trainer with a viewer for one chunk;
- 13. parallel — ``parallel/`` on torch.distributed: 2 ranks spawned on this
+ 13. bench   — the measuring and evaluation programs at their full default
+     widths, each through its own ``run``: ``freesurgs_tpu_torch.bench``
+     (bench.py's scene; the raw and the amortized rate, the amortized
+     binnings ceil(iters / 4) a window), ``cli.bench_train_step`` with one
+     view and with two (100k Gaussians), ``cli.stage_timing`` (the stages'
+     kernel times, from the profiler, must rise from stage to stage; the
+     CUDA-event and host times are printed) and ``cli.eval_ckpt``
+     on fullres's ``ckpt_final`` (its validation = fullres's final one, the
+     pose-refined test PSNR finite); each prints its JSON line with the
+     card's name and power limit, counters reset just before each and read
+     just after, launches = the renders it made;
+ 14. parallel — ``parallel/`` on torch.distributed: 2 ranks spawned on this
      card (gloo, since they share it), each rendering one band of 512 rows
      of the slice's scene through K1 / K2 / the sum. (a) the sharded render,
      with the projection replicated and sharded over N, against the
@@ -96,7 +107,7 @@ Phases, each printing one JSON line with its seconds:
      each bitwise its single-process run; (d) ms per sharded fwd+bwd per
      rank beside the single-process render. Launch counters reset on every
      rank just before (a) and read just after (c), before the references;
- 14. kernels — the launches by path, then one JSON line with every
+ 15. kernels — the launches by path, then one JSON line with every
      kernel's numbers (K1 / K2 / the sum from the slice_frame0 layout,
      their launches summed over every path, the ranks' added for
      parallel; K3 from the bench scene);
@@ -2163,6 +2174,94 @@ def run_viz(dev, smi: str, tmp: Path) -> dict:
     return launches
 
 
+# The bench phase: the repo's measuring and evaluation programs, in
+# process at their full default widths (bench.py's scene: 100k Gaussians,
+# SH3, 1280x1024), and eval_ckpt on fullres's ckpt_final with a short
+# refinement.
+EVAL_REFINE_ITERS = 20
+EVAL_GATE_KEYS = ("psnr", "ssim", "ate")
+
+
+def run_bench(dev, smi: str, tmp: Path) -> dict:
+    """The four programs through their own ``run``: the bench (raw and
+    amortized rates), the mapping-step bench with one view and with two,
+    stage timing, and ``eval_ckpt`` on fullres's ``ckpt_final``. Each
+    prints its JSON line here (``bench_program``: its name); counters reset
+    just before each and read just after, its launches = the renders it
+    reports. Gates: each program's own (overflow 0, finite outputs; the
+    amortized binnings ceil(iters / 4) a window), the device label = the
+    card's, the stages' kernel times rising from stage to stage, and
+    eval_ckpt's validation = fullres's final one from the same
+    checkpoint, its pose-refined PSNR finite. Returns the launches."""
+    import torch
+    from freesurgs_tpu_torch import bench
+    from freesurgs_tpu_torch.cli import (bench_train_step, eval_ckpt,
+                                         stage_timing)
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+
+    t0 = time.time()
+    launches, steps, lines = {}, {}, {}
+
+    def program(name: str, fn, *args):
+        rc.reset_launches()
+        t1 = time.time()
+        (line, diag), log = quiet(fn, *args)
+        torch.cuda.synchronize()
+        steps[name] = time.time() - t1
+        launches[name] = dict(rc.LAUNCHES)
+        want = launch_counts(diag["renders"]["fwd"], diag["renders"]["bwd"])
+        check(launches[name] == want,
+              f"{name} launches {launches[name]} != renders {want}")
+        check(line["device"] == smi, f"{name} device {line['device']}")
+        print(json.dumps({"bench_program": name, **line}), flush=True)
+        lines[name] = line
+        return line, diag, log
+
+    line, diag, _ = program("bench", bench.run, str(dev))
+    check(diag["amortized_binnings"] == math.ceil(
+        bench.ITERS / bench.REBIN_EVERY), f"bench binnings {diag}")
+    check(all(math.isfinite(line[k]) and line[k] > 0 for k in (
+        "value", "amortized_train_mpix_per_s", "ms_per_iter_median")),
+        f"bench line {line}")
+    bench_diag = diag
+    for views, argv in (("one_view", []), ("two_views", ["--two-views"])):
+        line, diag, _ = program(f"bench_train_step_{views}",
+                                bench_train_step.run,
+                                bench_train_step.parse(
+                                    argv + ["--device", str(dev)]))
+        check(math.isfinite(line["value"]) and line["value"] > 0
+              and math.isfinite(diag["loss"]), f"mapping step {line}")
+    line, diag, _ = program("stage_timing", stage_timing.run,
+                            stage_timing.parse(["--device", str(dev)]))
+    # the nested stages' device work must rise stage to stage; the event
+    # and host times are printed with their deltas, not gated: they follow
+    # the host, whose ~2 ms of jitter a call exceeds the smaller deltas
+    kern = [r["kernel_ms"] for r in line["stages"]]
+    check(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in line["stages"])
+          and all(b > a > 0 for a, b in zip(kern, kern[1:])),
+          f"stage kernel times do not rise stage to stage: {kern}")
+
+    data, out = tmp / "fullres", tmp / "cfg34"
+    final = json.loads((out / "summary.json").read_text())
+    line, diag, log = program("eval_ckpt", eval_ckpt.run, eval_ckpt.parse([
+        "--ckpt", str(out / "ckpt_final"), "--data", str(data), "--frames",
+        str(FULLRES_FRAMES), "--refine_iters", str(EVAL_REFINE_ITERS),
+        "--device", str(dev)]))
+    check(diag["overflow"] == 0, f"eval_ckpt overflow {diag['overflow']}")
+    check(all(line[k] == final[k] for k in EVAL_GATE_KEYS),
+          f"eval_ckpt validation {[line[k] for k in EVAL_GATE_KEYS]} != "
+          f"fullres's final {[final[k] for k in EVAL_GATE_KEYS]}")
+    check(math.isfinite(line["psnr_test_pose_refined"]),
+          f"pose-refined PSNR {line['psnr_test_pose_refined']}")
+    phase("bench", t0, nvidia_smi=smi, step_seconds=steps,
+          launches=launches, bench_instances=bench_diag["num_instances"],
+          bench_ms_per_iter=bench_diag["ms_per_iter"],
+          bench_amortized_ms_per_iter=bench_diag["amortized_ms_per_iter"],
+          eval_ckpt_vs_fullres={k: [line[k], final[k]]
+                                for k in EVAL_GATE_KEYS})
+    return launches
+
+
 # The parallel phase: the slice's scene band-sharded over 2 ranks that
 # share this card (gloo: NCCL refuses two ranks on one device), its
 # Trainer trimmed to 3 frames (frame 1 the test frame) and 4 global
@@ -2556,9 +2655,9 @@ def main() -> int:
     phase("device", t0, kind=kind, count=count, nvidia_smi=smi,
           torch=torch.__version__, cuda=torch.version.cuda)
 
+    from freesurgs_tpu_torch.bench import bench_scene
     from freesurgs_tpu_torch.ops import raster_cuda as rc
-    from freesurgs_tpu_torch.ops.raster_ablate import bench_scene, \
-        records_for
+    from freesurgs_tpu_torch.ops.raster_ablate import records_for
     t0 = time.time()
     reports = rc.build_kernels()
     phase("build", t0, built=sorted(reports), ptxas=ptxas_report(reports))
@@ -2580,6 +2679,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(run_fullres(dev, smi, Path(tmp)))
         paths.update(run_viz(dev, smi, Path(tmp)))
+        paths.update(run_bench(dev, smi, Path(tmp)))
     paths.update(run_parallel(dev, smi))
     # K1 / K2 / the sum's launches: the sum over the paths, each counted
     # alone

@@ -29,7 +29,6 @@ import argparse
 import contextlib
 import json
 import shutil
-import subprocess
 import tempfile
 import time
 import traceback
@@ -38,14 +37,8 @@ from pathlib import Path
 import torch
 
 from ..ops import render as render_mod
+from ..utils.profiling import device_label
 from . import make_fullres_dataset, run_config34
-
-
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def progressive_iterations(cfg, n_frames: int, sample_rate: int = 8) -> int:
@@ -67,7 +60,7 @@ def main(argv=None) -> int:
         raise RuntimeError("no CUDA device: the full-scale run is for the "
                            "card")
     frames, train_frames, global_iters = 60, 46, 30000
-    smi = smi_line()
+    smi = device_label(torch.device("cuda"))
     results = Path(args.results)
     results.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="fullscale_"))

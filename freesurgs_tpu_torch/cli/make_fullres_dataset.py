@@ -29,10 +29,10 @@ import os
 import time
 
 import numpy as np
-import torch
 
 from ..data.scared import save_synthetic_as_scared
 from ..data.synthetic import make_nonrigid_scene, make_scene
+from ..utils.profiling import resolve_device
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -57,10 +57,7 @@ def main(argv=None, log=print) -> dict:
     """Write the sequence; returns {"num_instances_max", "overflow_total",
     "render_seconds", "total_seconds"}."""
     args = parse(argv)
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to generate "
-                           "the sequence on the CPU")
+    dev = resolve_device(args.device)
     t0 = time.time()
     # scale_range sized for ~10-30 px screen radii at 1280x1024
     # (fx ~ 1.1*W, depths 1.0-2.5)

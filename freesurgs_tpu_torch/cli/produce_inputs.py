@@ -37,6 +37,7 @@ import torch
 
 from ..data.flow_hs import hs_flow, parallax_disparity
 from ..io.png import read_png
+from ..utils.profiling import resolve_device, synchronize
 
 
 def load_frames(root: str):
@@ -57,21 +58,13 @@ def load_frames(root: str):
     return imgs, stems
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def produce(root: str, flow: str = "hs", depth: str = "parallax",
             levels: int = 5, overwrite: bool = False, device="cuda",
             log=print) -> dict:
     """Write the flow and disparity files of ``root``. Returns
     {"flow_pairs": computed, "flow_seconds": seconds of each computed pair
     (forward and backward), "depth_maps": disparity files written}."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to produce "
-                           "the inputs on the CPU")
+    dev = resolve_device(device)
     if flow == "hs":
         def flow_pair(a, b):
             x = torch.from_numpy(np.stack([a, b])).to(dev)
@@ -100,7 +93,7 @@ def produce(root: str, flow: str = "hs", depth: str = "parallax",
         if os.path.exists(fw_path) and not overwrite:
             flows[t] = (np.load(fw_path)["pred"], np.load(bw_path)["pred"])
             continue
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         fw, bw = flow_pair(imgs[t], imgs[t + 1])
         seconds.append(time.perf_counter() - t0)

@@ -45,6 +45,7 @@ from ..models.pose import PoseTable
 from ..train.loop import Trainer
 from ..train.steps import TrainConfig
 from ..utils.logging import MetricsLogger
+from ..utils.profiling import resolve_device
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -144,10 +145,7 @@ def inject_gt_poses(trainer: Trainer, seq) -> None:
 
 def main(argv=None) -> int:
     args = parse(argv)
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run on the "
-                           "CPU")
+    dev = resolve_device(args.device)
 
     os.makedirs(args.out, exist_ok=True)
     seq = load_scared(args.data, 0, args.frames, sample_rate=8,

@@ -35,9 +35,9 @@ import argparse
 import time
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
+from ..bench import bench_scene
 from ..core.camera import Camera
 from ..core.sh import sh_to_rgb_clamped
 from .projection import project_gaussians
@@ -119,23 +119,6 @@ def ablate_pair_counts(name: str, feat, rect, starts, counts,
 
 
 # ------------------------------------------------------------ the bench scene
-
-def bench_scene(device):
-    """bench.py's full-resolution scene recipe, seed 0: (cam, [means, quats,
-    log_scales, logit_opacity, sh (N, 16, 3)])."""
-    H, W, N = 1024, 1280, 100_000
-    rng = np.random.default_rng(0)
-    cam = Camera(height=H, width=W, fx=W * 0.78, fy=W * 0.78, cx=W / 2,
-                 cy=H / 2)
-    means = np.stack([rng.uniform(-1.2, 1.2, N), rng.uniform(-1.0, 1.0, N),
-                      rng.uniform(0.8, 4.0, N)], -1).astype(np.float32)
-    quats = rng.normal(size=(N, 4)).astype(np.float32)
-    log_scales = np.log(rng.uniform(0.004, 0.012, (N, 3))).astype(np.float32)
-    logit_op = rng.uniform(-2, 2, N).astype(np.float32)
-    sh = (rng.normal(size=(N, 16, 3)).astype(np.float32) * 0.3)
-    return cam, [torch.as_tensor(x, device=device) for x in
-                 (means, quats, log_scales, logit_op, sh)]
-
 
 def records_for(cam: Camera, params):
     """Project the scene and bin it exactly as ``render`` does:

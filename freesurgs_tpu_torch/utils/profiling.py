@@ -7,7 +7,13 @@
   ``num_rays_per_step`` = H * W * 3), synchronizing the card only on a
   tensor it is handed;
 - ``enable_nan_debugging()``: ``torch.autograd.set_detect_anomaly``, the
-  reference's own switch (fails loudly at the op that produced a NaN).
+  reference's own switch (fails loudly at the op that produced a NaN);
+- for the measuring programs (``bench``, ``cli.bench_train_step``,
+  ``cli.stage_timing``, ``cli.eval_ckpt``): ``resolve_device`` (the card
+  unless the caller names the CPU; no fallback), ``device_label`` (the
+  card's name and power limit, printed beside every time),
+  ``synchronize`` and ``device_time`` (kernel time and wall time of one
+  traced call).
 
 The JAX package's ``enable_compilation_cache`` has no counterpart: the
 port runs eagerly and its kernels are cached by source hash in ``_build/``.
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 
 import torch
@@ -60,3 +67,59 @@ class StepTimer:
     @property
     def rays_per_sec(self) -> float:
         return self.rays_per_step / self.last_dt
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device an entry point runs on: ``cuda`` (the default of every
+    entry point) or ``cpu``. A CUDA device without a card raises: nothing
+    falls back to the CPU by itself."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card; pass "
+                           "--device cpu to run on the CPU")
+    return dev
+
+
+def device_label(dev) -> str:
+    """What a measured time is printed beside: the card's name and power
+    limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them, or ``"cpu"``."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return "cpu"
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    res = subprocess.run(
+        ["nvidia-smi", f"--id={idx}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return res.stdout.strip().splitlines()[0]
+
+
+def synchronize(dev) -> None:
+    """Wait for the work queued on ``dev`` (a no-op on the CPU)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def device_time(fn, dev) -> tuple[float, float] | None:
+    """(kernel seconds on the card, wall seconds) of one call of ``fn``,
+    traced by ``torch.profiler`` (the trace's cost lands in the wall time,
+    so keep it out of a timed window). None on the CPU, or when the trace
+    shows no device time."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+    # device-side events only: a CPU op's event repeats its kernels' time
+    dev_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA)
+    return (dev_us / 1e6, wall) if dev_us > 0 else None

@@ -40,6 +40,13 @@ PARALLEL_MODULES = {"freesurgs_tpu_torch.parallel",
                     "freesurgs_tpu_torch.parallel.sharded",
                     "freesurgs_tpu_torch.parallel.multiseq",
                     "freesurgs_tpu_torch.parallel.dryrun"}
+# The measuring and evaluation programs (the counterparts of bench.py,
+# scripts/bench_train_step.py, scripts/stage_timing.py and
+# scripts/eval_ckpt.py).
+MEASURING_MODULES = {"freesurgs_tpu_torch.bench",
+                     "freesurgs_tpu_torch.cli.bench_train_step",
+                     "freesurgs_tpu_torch.cli.stage_timing",
+                     "freesurgs_tpu_torch.cli.eval_ckpt"}
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -91,5 +98,5 @@ def test_port_imports_no_jax(which):
         walked = {m.name for m in pkgutil.walk_packages(
             pkg.__path__, "freesurgs_tpu_torch.")}
         want = (RAW_FRAMES_MODULES | FULLSCALE_VIEWER_MODULES
-                | PARALLEL_MODULES)
+                | PARALLEL_MODULES | MEASURING_MODULES)
         assert want <= walked, want - walked
