@@ -8,7 +8,11 @@ Phases, each printing one JSON line with its seconds:
      power limit (also printed raw on a line of its own);
   2. build   — nvcc builds every kernel library from csrc/ (ptxas registers,
      shared memory and spills per kernel, each ablation variant included);
-  3. parity  — K1, K2 (which stores each slot's gradients as one row of a
+  3. ssim    — ``cli.ssim_probe`` at 1280x1024 with TF32 pinned off: its
+     four checks against the float64 reference (ssim(x, x) = 1, the mean
+     within 1e-4, the smallest denominator > 0, |ssim_map| <= 1 + 1e-3),
+     and ``ops/ssim.ssim`` refusing to run with ``allow_tf32`` set;
+  4. parity  — K1, K2 (which stores each slot's gradients as one row of a
      sum-ordered (M, 10) buffer, row ``sum_rank[slot]``) and the
      per-Gaussian sum after K2 (``gaussian_grad_sum``, bitwise its plain
      version) against their plain PyTorch versions on bench.py's scene
@@ -17,27 +21,27 @@ Phases, each printing one JSON line with its seconds:
      the sum also against ``index_add_`` over ``gather_idx``, the sum
      layout's runs against ``gather_idx`` itself and ``sum_rank`` against
      the inverse of ``sum_order``;
-  4. timing  — CUDA-event times of K1 / K2 / the sum and their plain
+  5. timing  — CUDA-event times of K1 / K2 / the sum and their plain
      versions (the sum also beside ``index_add_``; both timed in a CUDA
      graph, since the sum is shorter than the host's time to launch it,
      and on the stream as before), with the pairs the records need, the
      least time the card could take (bound_ms) and the sum's run lengths;
-  5. ablate  — K3, the ablation family of today's K1 (ops/raster_ablate.py,
+  6. ablate  — K3, the ablation family of today's K1 (ops/raster_ablate.py,
      one Hopper mechanism switched off a variant): the timing run over
      every variant on the bench scene, its launch counts read just after;
      then each variant against its plain version, ``baseline`` bit for bit
      against K1 and ``nobulk`` / ``rowmap`` against ``baseline``; then K1
      and K3 ``baseline`` timed in turns;
-  6. slice   — the training job at 1280x1024 from 131,072 initial
+  7. slice   — the training job at 1280x1024 from 131,072 initial
      Gaussians, depth cut through TrainConfig: progressive SLAM with the
      default GN tracking (densify, the opacity reset at its last mapping
      iteration, SH degree 3), 40 global iterations with two validations
      and two periodic checkpoints, then save, restore into a fresh Trainer
      and 10 more global iterations there. Launch counters reset just before
      it and read just after. Frame 0's records at the end of the global
-     stage are kept, and after the run K1 / K2 get phases 3 and 4 again on
+     stage are kept, and after the run K1 / K2 get phases 4 and 5 again on
      them (layout "slice_frame0": the main path's own shapes);
-  7. reuse   — the same scene with the binning-layout carry
+  8. reuse   — the same scene with the binning-layout carry
      (rebin_every=4, rebin_tracking_every=5) and pose BA every 20 global
      iterations (5 Adam steps a frame): progressive SLAM, then 40 global
      iterations in two calls, a pose-BA pass ending each, and one
@@ -51,10 +55,10 @@ Phases, each printing one JSON line with its seconds:
      (reported); and, per one-view mapping and per tracking iteration,
      the host syncs and the wall ms (in turns) binning every render and
      with the carry;
-  8. overlap — progressive SLAM with keyframe_policy="overlap": finite
+  9. overlap — progressive SLAM with keyframe_policy="overlap": finite
      losses, frame 0 fitted, launches equal the renders made, the keyframe
      views picked;
-  9. cli     — the port's command line on the slice's scene written as a
+ 10. cli     — the port's command line on the slice's scene written as a
      SCARED directory by ``save_synthetic_as_scared``: the PNG codec
      (frames decode to the arrays written, native un-filter = plain on
      frame 0, frame 0 forced to each filter type), the directory loaded
@@ -65,7 +69,7 @@ Phases, each printing one JSON line with its seconds:
      validation = the final one) and ``cli.render --split all``; counters
      reset just before each command and read just after, launches = the
      renders made, panel renders included;
- 10. raw     — from raw frames: ``make_nonrigid_scene`` at the full-res
+ 11. raw     — from raw frames: ``make_nonrigid_scene`` at the full-res
      recipe cut to 6 frames, written as a SCARED directory without flow/
      and monodep/, ``cli.produce_inputs`` on the card (seconds per flow
      field; Horn-Schunck end-point error against the analytic flow on
@@ -79,12 +83,17 @@ Phases, each printing one JSON line with its seconds:
      constant-velocity init of frames 2-5 against the truth; the rigidity
      mask's precision and recall on the non-rigid pixels; the first render
      where the two runs differ, or none);
- 11. fullres — ``cli.make_fullres_dataset`` at 1280x1024 cut to 10 frames,
+ 12. fullres — ``cli.make_fullres_dataset`` at 1280x1024 cut to 10 frames,
      ``cli.run_config34`` (100 global iterations in chunks of 50, final
      pose BA), then ``--resume`` from its checkpoint at 50;
- 12. viz     — ``render_path`` over that map's camera paths, ``GSViewer`` on
+ 13. tpu_rows — the recipe's first 6 frames (fullres's dataset) through
+     ``cli.run_config34 --global_iters 0`` at cfg34_r5c's settings: each
+     frame's flow_loss, rgb_loss and gn_resid_px beside cfg34_r5c's (the
+     JAX package on a TPU v5e) and the recorded Arm A's (equal or not);
+     every row finite; launches = renders;
+ 14. viz     — ``render_path`` over that map's camera paths, ``GSViewer`` on
      a stub server, a Trainer with a viewer for one chunk;
- 13. bench   — the measuring and evaluation programs at their full default
+ 15. bench   — the measuring and evaluation programs at their full default
      widths, each through its own ``run``: ``freesurgs_tpu_torch.bench``
      (bench.py's scene; the raw and the amortized rate, the amortized
      binnings ceil(iters / 4) a window), ``cli.bench_train_step`` with one
@@ -94,8 +103,12 @@ Phases, each printing one JSON line with its seconds:
      on fullres's ``ckpt_final`` (its validation = fullres's final one, the
      pose-refined test PSNR finite); each prints its JSON line with the
      card's name and power limit, counters reset just before each and read
-     just after, launches = the renders it made;
- 14. parallel — ``parallel/`` on torch.distributed: 2 ranks spawned on this
+     just after, launches = the renders it made. The bench's line carries
+     ``step_costs``: a fresh step and the amortized window's binning and
+     carried steps, each alone, with its host syncs, device ms and wall ms
+     (in this warm process; ``python -m freesurgs_tpu_torch.bench`` gives
+     the same in a fresh one);
+ 16. parallel — ``parallel/`` on torch.distributed: 2 ranks spawned on this
      card (gloo, since they share it), each rendering one band of 512 rows
      of the slice's scene through K1 / K2 / the sum. (a) the sharded render,
      with the projection replicated and sharded over N, against the
@@ -107,7 +120,7 @@ Phases, each printing one JSON line with its seconds:
      each bitwise its single-process run; (d) ms per sharded fwd+bwd per
      rank beside the single-process render. Launch counters reset on every
      rank just before (a) and read just after (c), before the references;
- 15. kernels — the launches by path, then one JSON line with every
+ 17. kernels — the launches by path, then one JSON line with every
      kernel's numbers (K1 / K2 / the sum from the slice_frame0 layout,
      their launches summed over every path, the ranks' added for
      parallel; K3 from the bench scene);
@@ -453,6 +466,36 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
 # K3 variants that compute K1's function with K1's arithmetic per pair:
 # baseline first, then those held to it bit for bit.
 BITWISE_BASELINE = ("baseline", "nobulk", "rowmap")
+
+
+def run_ssim(dev, smi: str) -> None:
+    """``cli.ssim_probe`` at 1280x1024 on the card with TF32 pinned off (its
+    four checks must pass), and ``ops/ssim.ssim`` refusing to run with
+    ``allow_tf32`` set; the switch is restored after."""
+    import torch
+    from freesurgs_tpu_torch.cli import ssim_probe
+    from freesurgs_tpu_torch.ops.ssim import ssim
+
+    t0 = time.time()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are not pinned off")
+    line = ssim_probe.run(ssim_probe.parse(["--device", str(dev)]))
+    check(line["device"] == smi, f"ssim_probe device {line['device']}")
+    x = torch.rand(3, 64, 64, device=dev)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ssim(x, x)
+        refused = False
+    except RuntimeError:
+        refused = True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    phase("ssim", t0, nvidia_smi=smi, probe=line, tf32_refused=refused)
+    check(line["result"] == "PASS", f"ssim_probe failed: {line['checks']}")
+    check(refused, "ssim ran with TF32 matmuls allowed")
+    check(torch.backends.cuda.matmul.allow_tf32 == before,
+          "the TF32 switch was not restored")
 
 
 def run_ablate(bench, results):
@@ -929,23 +972,6 @@ def carry_exactness(tr) -> dict:
     return res
 
 
-def count_syncs(fn) -> int:
-    """Host-device synchronizations while ``fn`` runs (host reads and
-    blocking host-to-device copies), counted by torch's sync debug mode."""
-    import warnings
-
-    import torch
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
-
-
 def iteration_costs(tr, n: int = 8, every_n: int = 4) -> dict:
     """Host syncs and wall ms per one-view mapping iteration on frame 0 and
     per tracking (Adam) iteration, binning on every render and with the
@@ -956,6 +982,7 @@ def iteration_costs(tr, n: int = 8, every_n: int = 4) -> dict:
     the state moves on."""
     import torch
     from freesurgs_tpu_torch.train.steps import mapping_chunk, tracking_loop
+    from freesurgs_tpu_torch.utils.profiling import count_syncs
 
     def mapping(cfg):
         def fn():
@@ -1935,6 +1962,81 @@ def run_fullres(dev, smi: str, tmp: Path) -> dict:
     return launches
 
 
+# The tpu_rows phase: the recipe's first TPU_ROWS_FRAMES frames (fullres's
+# dataset: the trajectory and the field are drawn frame by frame, so its
+# first frames are the 60-frame recipe's) through cli.run_config34 at
+# cfg34_r5c's settings with no global stage, beside cfg34_r5c's rows
+# (results/cfg34_r5c_metrics.jsonl, the JAX package on a TPU v5e) and the
+# recorded Arm A (results/torch_cfg34_h100_metrics.jsonl). The flow loss
+# back-projects the bf16 depth cache in bf16, as the JAX package does; an
+# f32 back-projection did not bring the port to the TPU's rows either
+# (PERF.md §6), so the rows are gated finite only.
+TPU_ROWS_FRAMES = 6
+TPU_ROWS_KEYS = ("flow_loss", "rgb_loss", "gn_resid_px")
+
+
+def progressive_rows(path: Path, frames: int) -> dict[int, dict]:
+    """The progressive stage's rows of frames 1 .. frames - 1 of a
+    metrics.jsonl, by frame."""
+    rows = {}
+    for ln in path.read_text().splitlines():
+        r = json.loads(ln)
+        t = int(r.get("frame", -1))
+        if r.get("stage") == "progressive" and 0 < t < frames:
+            rows[t] = {k: r[k] for k in TPU_ROWS_KEYS}
+    return rows
+
+
+def run_tpu_rows(dev, smi: str, tmp: Path) -> dict:
+    """The port's first frames against the TPU's rows: ``cli.run_config34
+    --frames 6 --global_iters 0`` at cfg34_r5c's settings on fullres's
+    dataset, its per-frame flow_loss / rgb_loss / gn_resid_px printed
+    beside cfg34_r5c's and Arm A's. Counters reset just before the command
+    and read just after (launches = renders). Returns the launches."""
+    import torch
+    from freesurgs_tpu_torch.cli import run_config34
+    from freesurgs_tpu_torch.data.scared import load_scared
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.train.steps import TrainConfig
+
+    t0 = time.time()
+    data, out = tmp / "fullres", tmp / "tpu_rows"
+    rc.reset_launches()
+    code, log = quiet(run_config34.main, [
+        "--data", str(data), "--out", str(out), "--frames",
+        str(TPU_ROWS_FRAMES), "--depth_prior", "metric", "--rebin_every",
+        "4", "--tracking_gn_iters", "8", "--global_iters", "0",
+        "--device", dev.type])
+    torch.cuda.synchronize()
+    launches = {"tpu_rows": dict(rc.LAUNCHES)}
+    check(code == 0, f"run_config34 exited {code}: {log[-2000:]}")
+    seq = load_scared(str(data), 0, TPU_ROWS_FRAMES, sample_rate=8,
+                      depth_prior="metric")
+    fwd, bwd, _ = progressive_counts(TrainConfig(), seq)
+    n_val = len(seq.i_test) + len([int(t) for t in seq.i_train][::8])
+    want = launch_counts(fwd + n_val, bwd)
+    check(launches["tpu_rows"] == want,
+          f"tpu_rows launches {launches['tpu_rows']} != renders {want}")
+
+    port = progressive_rows(out / "metrics.jsonl", TPU_ROWS_FRAMES)
+    tpu = progressive_rows(REPO / "results" / "cfg34_r5c_metrics.jsonl",
+                           TPU_ROWS_FRAMES)
+    arm_a = progressive_rows(
+        REPO / "results" / "torch_cfg34_h100_metrics.jsonl", TPU_ROWS_FRAMES)
+    frames = range(1, TPU_ROWS_FRAMES)
+    rows = [{"frame": t, **{k: {"port": port[t][k], "tpu": tpu[t][k],
+                                "arm_a": arm_a[t][k],
+                                "port_over_tpu": port[t][k] / tpu[t][k]}
+                            for k in TPU_ROWS_KEYS}} for t in frames
+            if t in port]
+    phase("tpu_rows", t0, nvidia_smi=smi, launches=launches, rows=rows,
+          equal_to_arm_a=all(port.get(t) == arm_a[t] for t in frames))
+    check(sorted(port) == list(frames)
+          and all(math.isfinite(v) for r in port.values() for v in r.values()),
+          f"rows {port}")
+    return launches
+
+
 class StubElem:
     """A GUI element of the stub viser server (tests/test_viewer_panels.py's
     shape): a value and the callbacks registered on it."""
@@ -2661,6 +2763,7 @@ def main() -> int:
     t0 = time.time()
     reports = rc.build_kernels()
     phase("build", t0, built=sorted(reports), ptxas=ptxas_report(reports))
+    run_ssim(dev, smi)
 
     cam, params = bench_scene(dev)
     bench = (cam,) + records_for(cam, params)
@@ -2678,6 +2781,7 @@ def main() -> int:
     paths.update(run_raw(dev, smi))
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(run_fullres(dev, smi, Path(tmp)))
+        paths.update(run_tpu_rows(dev, smi, Path(tmp)))
         paths.update(run_viz(dev, smi, Path(tmp)))
         paths.update(run_bench(dev, smi, Path(tmp)))
     paths.update(run_parallel(dev, smi))

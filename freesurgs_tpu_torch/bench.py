@@ -6,8 +6,8 @@
 Prints one JSON line with ``bench.py``'s keys (``render_fwdbwd_mpix_per_s``
 and ``amortized_train_mpix_per_s``, ``vs_baseline`` against the same
 literature constant) plus ``device`` (the card's name and power limit),
-``iters``, ``ms_per_iter_median`` with its ``median_samples`` and
-``device_busy_share``.
+``iters``, ``ms_per_iter_median`` with its ``median_samples``,
+``device_busy_share``, ``step_costs`` and ``rates_after_tracing``.
 
 The scene is ``bench.py``'s: 100k Gaussians, SH degree 3, 1280x1024, seed
 0; the loss ``mean(render^2) + 0.1 mean(render_dep)``, with gradients to
@@ -27,8 +27,13 @@ untimed, so that tracing stays out of the timed ones. The amortized rate
 carries the binning layout (``render(bins=, rebin=)``) and rebins every
 ``REBIN_EVERY`` steps, as the training loops do with ``rebin_every=4``;
 its binnings are counted (``raster_cuda.BINS``) and must be
-``ceil(iters / REBIN_EVERY)`` a window. The first render's overflow must
-be 0, and every loss and gradient finite.
+``ceil(iters / REBIN_EVERY)`` a window. Both rates are timed before any
+pass that traces or counts; ``step_costs`` then takes one window of each
+kind apart, step by step (``step_costs``): a fresh step, and the
+amortized window's binning and carried steps, each with its host syncs,
+device ms and wall ms; ``rates_after_tracing`` times both windows again
+after those passes (None on the CPU, where nothing is traced). The first
+render's overflow must be 0, and every loss and gradient finite.
 """
 
 from __future__ import annotations
@@ -45,8 +50,8 @@ import torch
 from .core.camera import Camera
 from .ops import raster_cuda as rc
 from .ops.render import render
-from .utils.profiling import (device_label, device_time, resolve_device,
-                              synchronize)
+from .utils.profiling import (count_syncs, device_label, device_time,
+                              resolve_device, synchronize)
 
 # The root bench.py's divisor: a literature estimate of the CUDA
 # rasterizer's fwd+bwd rate on an RTX-3090-class GPU (bench.py's docstring).
@@ -152,6 +157,55 @@ class Bench:
         return best
 
 
+def step_costs(b: Bench, iters: int, rebin_every: int | None = None
+               ) -> dict:
+    """One window of ``iters`` steps taken apart: each step alone, its host
+    syncs (``count_syncs``), device ms (``device_time``) and wall ms
+    (between two synchronizes), in three passes over the window that chain
+    the means and the layout as ``Bench.steps`` does. Grouped by the
+    step's kind, "fresh" (no carry), "rebin" (a carry's binning) or
+    "carried" (the layout reused): the mean syncs and the median device
+    and wall ms; syncs and device ms are None on the CPU."""
+    dev = b.dev
+
+    def wall_ms(fn):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    def device_ms(fn):
+        traced = device_time(fn, dev)
+        return None if traced is None else traced[0] * 1e3
+
+    def window(measure) -> dict[str, list]:
+        m, bins, by_kind = b.params[0], None, {}
+        for i in range(iters):
+            rebin = None if rebin_every is None else i % rebin_every == 0
+            res = []
+            value = measure(lambda: res.append(b.grad_step(m, bins, rebin)))
+            _, grads, bins = res[0]
+            m = m + 0.0 * grads[0]
+            kind = ("fresh" if rebin is None else "rebin" if rebin
+                    else "carried")
+            by_kind.setdefault(kind, []).append(value)
+        return by_kind
+
+    walls = window(wall_ms)
+    if dev.type != "cuda":
+        return {kind: {"steps": len(w), "host_syncs": None,
+                       "device_ms": None, "wall_ms": statistics.median(w)}
+                for kind, w in walls.items()}
+    syncs = window(count_syncs)
+    devs = window(device_ms)
+    return {kind: {
+        "steps": len(w), "host_syncs": statistics.mean(syncs[kind]),
+        "device_ms": None if None in devs[kind] else statistics.median(
+            devs[kind]),
+        "wall_ms": statistics.median(w)} for kind, w in walls.items()}
+
+
 def check_finite(*tensors) -> None:
     for t in tensors:
         if not bool(torch.isfinite(t).all()):
@@ -175,13 +229,20 @@ def run(device: str = "cuda", iters: int = ITERS) -> tuple[dict, dict]:
     instances = int(out["num_instances"])
 
     b.steps(1)                              # warm-up: the kernels' build
+    b.steps(iters, REBIN_EVERY)             # warm-up of the carry
+    # every timed window before the passes that trace or count syncs;
+    # on the card both windows are timed again after them
     dt = b.best_window(iters)
+    dta = b.best_window(iters, REBIN_EVERY)
+    binnings = rc.BINS["build_tile_bins"]
     _, _, _, times = b.steps(iters, sync_each=True)
     traced = device_time(lambda: b.steps(iters), dev)
-    b.steps(iters, REBIN_EVERY)             # warm-up of the carry
-    dta = b.best_window(iters, REBIN_EVERY)
-
+    costs = step_costs(b, iters) | step_costs(b, iters, REBIN_EVERY)
     mpix = b.cam.height * b.cam.width / 1e6
+    after = None if traced is None else {
+        "raw": mpix / b.best_window(iters),
+        "amortized": mpix / b.best_window(iters, REBIN_EVERY)}
+
     line = {
         "metric": "render_fwdbwd_mpix_per_s",
         "value": round(mpix / dt, 3),
@@ -196,9 +257,11 @@ def run(device: str = "cuda", iters: int = ITERS) -> tuple[dict, dict]:
         "median_samples": len(times),
         "device_busy_share": None if traced is None else (
             traced[0] / traced[1]),
+        "step_costs": costs,
+        "rates_after_tracing": after,
     }
     diag = {"renders": {"fwd": b.fwd, "bwd": b.bwd},
-            "amortized_binnings": rc.BINS["build_tile_bins"],
+            "amortized_binnings": binnings,
             "num_instances": instances, "ms_per_iter": dt * 1e3,
             "amortized_ms_per_iter": dta * 1e3}
     return line, diag

@@ -1,26 +1,31 @@
 """The full-scale run of the port on one GPU (BASELINE configs 3-4).
 
-    python -m freesurgs_tpu_torch.cli.fullscale --results <dir>
+    python -m freesurgs_tpu_torch.cli.fullscale --results <dir> [--seed 7]
 
 Generates the full-res recipe with ``cli.make_fullres_dataset --frames
-60`` (1280x1024, 20,000 Gaussians, seed 7), then trains it with
+60 --seed <seed>`` (1280x1024, 20,000 Gaussians), then trains it with
 ``cli.run_config34 --frames 46 --depth_prior metric --rebin_every 4
 --global_iters 30000 --global_chunk 250 --tracking_gn_iters 8 --save_ckpt
 --pose_ba_final 1 --budget_s 2700`` (cfg34_r5c's settings; the budget
 keeps the whole run under an hour), both in this process, on the card
-(without a CUDA device it fails). The dataset, checkpoints and PLY stay in
-a temporary directory, removed at the end; ``--results`` receives what is
-small: ``summary.json`` and ``summary_ba.json`` with ``nvidia_smi`` (the
-card's name and power limit), the peak allocated device memory, the
-largest instance count of any training render, each stage's iterations
-per second and the warnings the Trainer logged; plus ``metrics.jsonl``,
-``cameras.json`` and the console log ``train.log``.
+(without a CUDA device it fails), and evaluates ``ckpt_final`` with
+``cli.eval_ckpt`` (``--refine_iters 100``): the validation again and the
+pose-refined test PSNR, which separates the map's error from the tracked
+test poses'. The dataset, checkpoints and PLY stay in a temporary
+directory, removed at the end (a checkpoint is too large to keep);
+``--results`` receives what is small: ``summary.json`` and
+``summary_ba.json`` with ``nvidia_smi`` (the card's name and power limit),
+the peak allocated device memory, the largest instance count of any
+training render, each stage's iterations per second and the warnings the
+Trainer logged; ``eval_ckpt.json``, the evaluation's line; plus
+``metrics.jsonl``, ``cameras.json`` and the console log ``train.log``.
 
 Each render's instance count is kept as a running maximum on the device
 (no host read during the run).
 
 Exits non-zero when a command fails; ``summary.json`` is written first
-when the failure is the final pose BA's.
+when the failure is the final pose BA's, and the evaluation runs whenever
+``ckpt_final`` was written.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch
 
 from ..ops import render as render_mod
 from ..utils.profiling import device_label
-from . import make_fullres_dataset, run_config34
+from . import eval_ckpt, make_fullres_dataset, run_config34
 
 
 def progressive_iterations(cfg, n_frames: int, sample_rate: int = 8) -> int:
@@ -55,6 +60,8 @@ def progressive_iterations(cfg, n_frames: int, sample_rate: int = 8) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--results", required=True)
+    ap.add_argument("--seed", type=int, default=7,
+                    help="the recipe's seed (cli.make_fullres_dataset)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the full-scale run is for the "
@@ -84,18 +91,21 @@ def main(argv=None) -> int:
         return res
 
     log_path = results / "train.log"
+    argv_data = ["--out", str(data), "--frames", str(frames), "--seed",
+                 str(args.seed), "--device", "cuda"]
+    argv_eval = ["--ckpt", str(out / "ckpt_final"), "--data", str(data),
+                 "--frames", str(train_frames), "--device", "cuda"]
     info = {"nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "make_fullres_dataset_argv":
-            ["--frames", str(frames)], "run_config34_argv": argv34}
+            argv_data[2:], "run_config34_argv": argv34,
+            "eval_ckpt_argv": argv_eval}
     error = None
+    evaluation = None
     t0 = time.time()
     with open(log_path, "w", buffering=1) as log, \
             contextlib.redirect_stdout(log):
         print(smi, flush=True)
-        gen_stats = make_fullres_dataset.main(
-            ["--out", str(data), "--frames", str(frames),
-             "--device", "cuda"])
-        info["dataset"] = gen_stats
+        info["dataset"] = make_fullres_dataset.main(argv_data)
         torch.cuda.reset_peak_memory_stats()
         render_mod.rasterize = rasterize_spy
         try:
@@ -105,9 +115,19 @@ def main(argv=None) -> int:
             print(error, flush=True)
         finally:
             render_mod.rasterize = real_rasterize
-    info["seconds_total"] = time.time() - t0
-    torch.cuda.synchronize()
-    info["peak_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        info["seconds_total"] = time.time() - t0
+        info["peak_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated())
+        if (out / "ckpt_final").exists():
+            t1 = time.time()
+            try:
+                evaluation, _ = eval_ckpt.run(eval_ckpt.parse(argv_eval))
+                print(json.dumps(evaluation), flush=True)
+            except Exception:
+                error = (error or "") + traceback.format_exc()
+                print(error, flush=True)
+            info["eval_seconds"] = time.time() - t1
     if peak_inst["n"] is not None:
         info["num_instances_max_training"] = int(peak_inst["n"])
     lines = log_path.read_text().splitlines()
@@ -133,6 +153,9 @@ def main(argv=None) -> int:
             shutil.copy(out / name, results / name)
     if not (results / "summary.json").exists():
         (results / "summary.json").write_text(json.dumps(info, indent=1))
+    if evaluation is not None:
+        (results / "eval_ckpt.json").write_text(json.dumps(evaluation)
+                                                + "\n")
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({k: info[k] for k in ("nvidia_smi", "seconds_total")}
                      | {"error": error is not None}), flush=True)

@@ -53,9 +53,11 @@ def _blur(img: torch.Tensor, window_size: int = 11,
     return torch.matmul(Bh.T, y)                   # blur along H
 
 
-def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
-         sigma: float = 1.5) -> torch.Tensor:
-    """Mean SSIM of two (C, H, W) images in [0, 1]."""
+def ssim_terms(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+               sigma: float = 1.5) -> tuple[torch.Tensor, torch.Tensor]:
+    """SSIM's numerator and denominator maps of two (C, H, W) images
+    (``ssim_map = num / den``); the denominator is what truncation drives
+    through zero (``cli/ssim_probe.py`` reads both)."""
     if img1.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("ssim needs full-f32 matmuls: TF32 truncation "
                            "breaks its variance cancellation")
@@ -69,6 +71,13 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     sigma2_sq = b[3 * c:4 * c] - mu2_sq
     sigma12 = b[4 * c:5 * c] - mu12
     c1, c2 = 0.01 ** 2, 0.03 ** 2
-    ssim_map = (((2.0 * mu12 + c1) * (2.0 * sigma12 + c2))
-                / ((mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)))
-    return torch.mean(ssim_map)
+    num = (2.0 * mu12 + c1) * (2.0 * sigma12 + c2)
+    den = (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
+    return num, den
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+         sigma: float = 1.5) -> torch.Tensor:
+    """Mean SSIM of two (C, H, W) images in [0, 1]."""
+    num, den = ssim_terms(img1, img2, window_size, sigma)
+    return torch.mean(num / den)

@@ -12,8 +12,9 @@
   ``cli.stage_timing``, ``cli.eval_ckpt``): ``resolve_device`` (the card
   unless the caller names the CPU; no fallback), ``device_label`` (the
   card's name and power limit, printed beside every time),
-  ``synchronize`` and ``device_time`` (kernel time and wall time of one
-  traced call).
+  ``synchronize``, ``device_time`` (kernel time and wall time of one
+  traced call) and ``count_syncs`` (the host-device synchronizations of
+  one call).
 
 The JAX package's ``enable_compilation_cache`` has no counterpart: the
 port runs eagerly and its kernels are cached by source hash in ``_build/``.
@@ -25,6 +26,7 @@ import contextlib
 import os
 import subprocess
 import time
+import warnings
 
 import torch
 
@@ -123,3 +125,18 @@ def device_time(fn, dev) -> tuple[float, float] | None:
     dev_us = sum(ev.self_device_time_total for ev in prof.key_averages()
                  if ev.device_type == DeviceType.CUDA)
     return (dev_us / 1e6, wall) if dev_us > 0 else None
+
+
+def count_syncs(fn) -> int:
+    """Host-device synchronizations while ``fn`` runs on the card (host
+    reads and blocking host-to-device copies), counted by torch's sync
+    debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)

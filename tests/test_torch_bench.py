@@ -40,7 +40,8 @@ from test_torch_viz import one_thread  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_BENCH_KEYS = {"device", "iters", "ms_per_iter_median",
-                   "median_samples", "device_busy_share"}
+                   "median_samples", "device_busy_share", "step_costs",
+                   "rates_after_tracing"}
 GRAD_TOL = 5e-5
 
 
@@ -155,6 +156,39 @@ def test_bench_line_has_bench_py_keys(monkeypatch, capsys):
     assert line["device"] == "cpu" and line["device_busy_share"] is None
     assert line["median_samples"] == line["iters"] == bench.ITERS
     assert line["value"] > 0 and line["amortized_train_mpix_per_s"] > 0
+    # a fresh window, and an amortized one's binning and carried steps
+    steps = {k: v["steps"] for k, v in line["step_costs"].items()}
+    assert steps == {"fresh": 8, "rebin": 2, "carried": 6}
+    assert all(v["wall_ms"] > 0 and v["host_syncs"] is None
+               and v["device_ms"] is None
+               for v in line["step_costs"].values())
+    assert line["rates_after_tracing"] is None
+
+
+def test_timed_windows_precede_tracing(monkeypatch):
+    """Both rates are timed before the passes that trace or count syncs
+    (``device_time``, ``step_costs``): on the card a window timed after
+    them ran up to a third slower, which put the amortized rate, timed
+    after the profiler, below the raw one."""
+    calls = []
+    monkeypatch.setattr(bench, "CPU_SHAPES", dict(height=32, width=32,
+                                                  n=300, sh_degree=0))
+    monkeypatch.setattr(
+        bench.Bench, "best_window",
+        lambda self, iters, rebin_every=None, reps=3:
+        calls.append(("window", rebin_every)) or 0.01)
+    monkeypatch.setattr(
+        bench.Bench, "steps",
+        lambda self, iters, rebin_every=None, sync_each=False:
+        (None, [], [], [0.01] * iters))
+    monkeypatch.setattr(bench, "device_time",
+                        lambda fn, dev: calls.append("trace"))
+    monkeypatch.setattr(bench, "step_costs",
+                        lambda b, iters, rebin_every=None:
+                        calls.append("costs") or {}, raising=False)
+    bench.run("cpu")
+    assert calls == [("window", None), ("window", bench.REBIN_EVERY),
+                     "trace", "costs", "costs"]
 
 
 # ------------------------------------------------------------- no card

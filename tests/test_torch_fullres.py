@@ -14,6 +14,9 @@ package's ``scripts/make_fullres_dataset.py`` and ``scripts/run_config34.py``.
   (PLY = the final field), ``--budget_s 0``, ``--resume``,
   ``--use_gt_poses`` (ATE ~ 0) and a failing ``--pose_ba_final`` (raises,
   ``summary.json`` already written).
+- ``cli.fullscale``'s wiring with the card's calls stubbed and its
+  commands cut to those sizes: ``--seed`` reaches the dataset and
+  ``cli.eval_ckpt``'s line on ``ckpt_final`` lands in ``--results``.
 """
 
 import functools
@@ -28,7 +31,7 @@ import torch
 
 from freesurgs_tpu.data.scared import save_synthetic_as_scared as jsave
 from freesurgs_tpu.data.synthetic import make_scene as jmake_scene
-from freesurgs_tpu_torch.cli import fullscale
+from freesurgs_tpu_torch.cli import eval_ckpt, fullscale
 from freesurgs_tpu_torch.cli import make_fullres_dataset as mfd
 from freesurgs_tpu_torch.cli import run_config34 as rc34
 from freesurgs_tpu_torch.io.checkpoint import restore_checkpoint
@@ -235,3 +238,65 @@ def test_run_config34_needs_data_and_out(tmp_path, missing):
         rc34.parse([a for kv in argv.items() for a in kv]
                    + ["--device", "cpu"])
     assert not (tmp_path / "run").exists()
+
+
+def test_fullscale_seed_and_evaluation(tmp_path, monkeypatch):
+    """``cli.fullscale --seed 8``: the seed reaches
+    ``cli.make_fullres_dataset``, and ``cli.eval_ckpt`` evaluates the run's
+    ``ckpt_final`` on its dataset, its line (the validation again, and the
+    pose-refined test PSNR) written as ``eval_ckpt.json`` beside the
+    summaries. The card's calls are stubbed; each command runs on the CPU
+    at the sizes above (5 frames at 32x48, the TrainConfig depth cut, 2
+    global iterations, 2 refinement iterations)."""
+    seen = {}
+    real_mfd, real_rc34, real_eval = mfd.main, rc34.main, eval_ckpt.run
+
+    def fake_mfd(argv):
+        seen["make_fullres_dataset"] = a = mfd.parse(argv)
+        return real_mfd(["--out", a.out, "--frames", "5", "--n", "400",
+                         "--seed", str(a.seed)] + SMALL)
+
+    def fake_rc34(argv):
+        seen["run_config34"] = a = rc34.parse(argv)
+        return real_rc34([
+            "--data", a.data, "--out", a.out, "--frames", "5",
+            "--depth_prior", a.depth_prior, "--rebin_every",
+            str(a.rebin_every), "--tracking_gn_iters",
+            str(a.tracking_gn_iters), "--global_iters", "2",
+            "--global_chunk", "2", "--pose_ba_iters", "2", "--save_ckpt",
+            "--pose_ba_final", str(a.pose_ba_final), "--device", "cpu"])
+
+    def fake_eval(args):
+        seen["eval_ckpt"] = dict(vars(args))
+        args.frames, args.refine_iters, args.device = 5, 2, "cpu"
+        return real_eval(args)
+
+    monkeypatch.setattr(mfd, "main", fake_mfd)
+    monkeypatch.setattr(rc34, "main", fake_rc34)
+    monkeypatch.setattr(rc34, "TrainConfig", FAST)
+    monkeypatch.setattr(eval_ckpt, "run", fake_eval)
+    monkeypatch.setattr(fullscale, "device_label", lambda dev: "stub")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for name in ("reset_peak_memory_stats", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+
+    results = tmp_path / "results"
+    assert fullscale.main(["--results", str(results), "--seed", "8"]) == 0
+    assert seen["make_fullres_dataset"].seed == 8
+    data = Path(seen["make_fullres_dataset"].out)
+    assert seen["run_config34"].data == str(data)
+    assert seen["eval_ckpt"]["ckpt"] == str(
+        Path(seen["run_config34"].out) / "ckpt_final")
+    assert seen["eval_ckpt"]["data"] == str(data)
+    assert seen["eval_ckpt"]["frames"] == seen["run_config34"].frames == 46
+    line = json.loads((results / "eval_ckpt.json").read_text())
+    summary = json.loads((results / "summary.json").read_text())
+    assert np.isfinite(line["psnr_test_pose_refined"])
+    assert line["refine_iters"] == 2
+    # the evaluation restores the run's final state: its validation is
+    # the run's final one
+    assert all(line[k] == summary[k] for k in ("psnr", "ssim", "ate"))
+    assert summary["make_fullres_dataset_argv"][2:4] == ["--seed", "8"]
+    assert not data.exists()                 # the work directory is gone

@@ -41,12 +41,13 @@ PARALLEL_MODULES = {"freesurgs_tpu_torch.parallel",
                     "freesurgs_tpu_torch.parallel.multiseq",
                     "freesurgs_tpu_torch.parallel.dryrun"}
 # The measuring and evaluation programs (the counterparts of bench.py,
-# scripts/bench_train_step.py, scripts/stage_timing.py and
-# scripts/eval_ckpt.py).
+# scripts/bench_train_step.py, scripts/stage_timing.py,
+# scripts/eval_ckpt.py and scripts/ssim_probe.py).
 MEASURING_MODULES = {"freesurgs_tpu_torch.bench",
                      "freesurgs_tpu_torch.cli.bench_train_step",
                      "freesurgs_tpu_torch.cli.stage_timing",
-                     "freesurgs_tpu_torch.cli.eval_ckpt"}
+                     "freesurgs_tpu_torch.cli.eval_ckpt",
+                     "freesurgs_tpu_torch.cli.ssim_probe"}
 
 _PROBE = """
 import importlib, pkgutil, sys
