@@ -89,8 +89,10 @@ Phases, each printing one JSON line with its seconds:
  13. tpu_rows — the recipe's first 6 frames (fullres's dataset) through
      ``cli.run_config34 --global_iters 0`` at cfg34_r5c's settings: each
      frame's flow_loss, rgb_loss and gn_resid_px beside cfg34_r5c's (the
-     JAX package on a TPU v5e) and the recorded Arm A's (equal or not);
-     every row finite; launches = renders;
+     JAX package on a TPU v5e) and the recorded Arm A's (equal or not),
+     and frame 1's beside tests/fullwidth_witness.py's (the JAX package
+     and the port on the CPU at full width, iterations cut); every row
+     finite; launches = renders;
  14. viz     — ``render_path`` over that map's camera paths, ``GSViewer`` on
      a stub server, a Trainer with a viewer for one chunk;
  15. bench   — the measuring and evaluation programs at their full default
@@ -1167,6 +1169,12 @@ def run_reuse(dev, slice_summary: dict):
     check([h["iter"] for h in ba_rows] == [20, 40],
           f"pose-BA rows {ba_rows}")
     check(monotone, f"a pose-BA pass made a frame worse: {ba_checks}")
+    for h in ba_rows:               # the Trainer's row against the renders
+        starts = [c["loss_start"] for c in ba_checks if c["iter"] == h["iter"]]
+        check(h["mean_loss"] <= h["start_mean_loss"]
+              and math.isclose(h["start_mean_loss"], float(np.mean(starts)),
+                               rel_tol=1e-5) and h["seconds"] > 0,
+              f"pose-BA row {h} against its frames' start losses {starts}")
     check(pinned_equal, f"pose BA moved a pinned frame ({pinned})")
     check(overflow == 0, f"instance overflow {overflow}")
     summary["carry"] = carry_exactness(tr)
@@ -1987,6 +1995,19 @@ def progressive_rows(path: Path, frames: int) -> dict[int, dict]:
     return rows
 
 
+def witness_frame1() -> dict:
+    """Frame 1's tracking rows of ``tests/fullwidth_witness.py`` (its
+    committed ``results/fullwidth_witness.json``): the JAX package and the
+    port on the CPU at 1280x1024, ``tracking_loop`` from one shared state
+    after a cut frame-0 mapping (the cuts listed)."""
+    res = json.loads((REPO / "results" / "fullwidth_witness.json"
+                      ).read_text())
+    rows = res["steps"]["5_tracking_frame1"]["tracking"]["rows"]
+    return {"cuts": res["cuts"],
+            **{k: {"jax_cpu": rows[k][0], "port_cpu": rows[k][1]}
+               for k in TPU_ROWS_KEYS}}
+
+
 def run_tpu_rows(dev, smi: str, tmp: Path) -> dict:
     """The port's first frames against the TPU's rows: ``cli.run_config34
     --frames 6 --global_iters 0`` at cfg34_r5c's settings on fullres's
@@ -2030,7 +2051,8 @@ def run_tpu_rows(dev, smi: str, tmp: Path) -> dict:
                             for k in TPU_ROWS_KEYS}} for t in frames
             if t in port]
     phase("tpu_rows", t0, nvidia_smi=smi, launches=launches, rows=rows,
-          equal_to_arm_a=all(port.get(t) == arm_a[t] for t in frames))
+          equal_to_arm_a=all(port.get(t) == arm_a[t] for t in frames),
+          fullwidth_witness_frame1=witness_frame1())
     check(sorted(port) == list(frames)
           and all(math.isfinite(v) for r in port.values() for v in r.values()),
           f"rows {port}")

@@ -59,7 +59,7 @@ def run(args) -> tuple[dict, dict]:
     if args.refine_iters > 0:
         ps = []
         for t in test:
-            q, tr_, _, ov = refine_pose(
+            q, tr_, _, ov, _ = refine_pose(
                 trainer.field, trainer.poses.quats[t], trainer.poses.trans[t],
                 trainer.colors[t], trainer.cam, iters=args.refine_iters,
                 sh_degree=trainer.active_sh_degree,

@@ -1,14 +1,17 @@
 """The full-scale run of the port on one GPU (BASELINE configs 3-4).
 
     python -m freesurgs_tpu_torch.cli.fullscale --results <dir> [--seed 7]
+        [--pose_ba_every N]
 
 Generates the full-res recipe with ``cli.make_fullres_dataset --frames
 60 --seed <seed>`` (1280x1024, 20,000 Gaussians), then trains it with
 ``cli.run_config34 --frames 46 --depth_prior metric --rebin_every 4
 --global_iters 30000 --global_chunk 250 --tracking_gn_iters 8 --save_ckpt
 --pose_ba_final 1 --budget_s 2700`` (cfg34_r5c's settings; the budget
-keeps the whole run under an hour), both in this process, on the card
-(without a CUDA device it fails), and evaluates ``ckpt_final`` with
+keeps the whole run under an hour; ``--pose_ba_every N`` adds the
+mid-global pose BA every N global iterations, cfg34_r5b's arm at 2500,
+and the default 0 leaves that argv as it is), both in this process, on
+the card (without a CUDA device it fails), and evaluates ``ckpt_final`` with
 ``cli.eval_ckpt`` (``--refine_iters 100``): the validation again and the
 pose-refined test PSNR, which separates the map's error from the tracked
 test poses'. The dataset, checkpoints and PLY stay in a temporary
@@ -21,7 +24,10 @@ Trainer logged; ``eval_ckpt.json``, the evaluation's line; plus
 ``metrics.jsonl``, ``cameras.json`` and the console log ``train.log``.
 
 Each render's instance count is kept as a running maximum on the device
-(no host read during the run).
+(no host read during the run). The Trainer's row of each pose-BA pass
+(the mid-global ones and the final one, in order, from metrics.jsonl) is
+copied under ``pose_ba_passes``: its global iteration, seconds, and the
+mean loss at the poses it started from and at those it returned.
 
 Exits non-zero when a command fails; ``summary.json`` is written first
 when the failure is the final pose BA's, and the evaluation runs whenever
@@ -45,6 +51,8 @@ from ..ops import render as render_mod
 from ..utils.profiling import device_label
 from . import eval_ckpt, make_fullres_dataset, run_config34
 
+FRAMES, TRAIN_FRAMES, GLOBAL_ITERS = 60, 46, 30000
+
 
 def progressive_iterations(cfg, n_frames: int, sample_rate: int = 8) -> int:
     """Optimizer iterations of ``Trainer.progressive_run`` on a sequence
@@ -57,27 +65,43 @@ def progressive_iterations(cfg, n_frames: int, sample_rate: int = 8) -> int:
             + cfg.mapping_iters * len(mapped))
 
 
-def main(argv=None) -> int:
+def parse(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--results", required=True)
     ap.add_argument("--seed", type=int, default=7,
                     help="the recipe's seed (cli.make_fullres_dataset)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--pose_ba_every", type=int, default=0,
+                    help="mid-global pose-BA cadence passed to "
+                         "cli.run_config34 (0 = off, Arm A; 2500 = "
+                         "cfg34_r5b's arm)")
+    return ap.parse_args(argv)
+
+
+def run_config34_argv(args, data: Path, out: Path) -> list[str]:
+    """The ``cli.run_config34`` command line of the run: Arm A's, plus
+    ``--pose_ba_every`` when it is set."""
+    argv = ["--data", str(data), "--out", str(out),
+            "--frames", str(TRAIN_FRAMES), "--depth_prior", "metric",
+            "--rebin_every", "4", "--global_iters", str(GLOBAL_ITERS),
+            "--global_chunk", "250", "--tracking_gn_iters", "8",
+            "--save_ckpt", "--pose_ba_final", "1", "--budget_s", "2700",
+            "--device", "cuda"]
+    if args.pose_ba_every:
+        argv += ["--pose_ba_every", str(args.pose_ba_every)]
+    return argv
+
+
+def main(argv=None) -> int:
+    args = parse(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the full-scale run is for the "
                            "card")
-    frames, train_frames, global_iters = 60, 46, 30000
     smi = device_label(torch.device("cuda"))
     results = Path(args.results)
     results.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="fullscale_"))
     data, out = work / "data", work / "run"
-    argv34 = ["--data", str(data), "--out", str(out),
-              "--frames", str(train_frames), "--depth_prior", "metric",
-              "--rebin_every", "4", "--global_iters", str(global_iters),
-              "--global_chunk", "250", "--tracking_gn_iters", "8",
-              "--save_ckpt", "--pose_ba_final", "1", "--budget_s", "2700",
-              "--device", "cuda"]
+    argv34 = run_config34_argv(args, data, out)
 
     # the largest instance count of any render, kept on the device
     peak_inst = {"n": None}
@@ -91,10 +115,10 @@ def main(argv=None) -> int:
         return res
 
     log_path = results / "train.log"
-    argv_data = ["--out", str(data), "--frames", str(frames), "--seed",
+    argv_data = ["--out", str(data), "--frames", str(FRAMES), "--seed",
                  str(args.seed), "--device", "cuda"]
     argv_eval = ["--ckpt", str(out / "ckpt_final"), "--data", str(data),
-                 "--frames", str(train_frames), "--device", "cuda"]
+                 "--frames", str(TRAIN_FRAMES), "--device", "cuda"]
     info = {"nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "make_fullres_dataset_argv":
             argv_data[2:], "run_config34_argv": argv34,
@@ -130,13 +154,17 @@ def main(argv=None) -> int:
             info["eval_seconds"] = time.time() - t1
     if peak_inst["n"] is not None:
         info["num_instances_max_training"] = int(peak_inst["n"])
+    metrics = out / "metrics.jsonl"
+    rows = ([json.loads(ln) for ln in metrics.read_text().splitlines()]
+            if metrics.exists() else [])
+    info["pose_ba_passes"] = [r for r in rows if r.get("stage") == "pose_ba"]
     lines = log_path.read_text().splitlines()
     info["warnings_logged"] = [ln for ln in lines if "WARNING" in ln]
     info["nonfinite_logged"] = [ln for ln in lines if "NONFINITE" in ln]
     if error is not None:
         info["error"] = error
 
-    it = progressive_iterations(run_config34.TrainConfig(), train_frames)
+    it = progressive_iterations(run_config34.TrainConfig(), TRAIN_FRAMES)
     for name in ("summary.json", "summary_ba.json"):
         path = out / name
         if not path.exists():

@@ -442,20 +442,29 @@ class Trainer:
     def _pose_ba_pass(self, total: int):
         """One global-stage pose-BA pass: refine every train-frame pose but
         frame 0's against the frozen map (test frames stay as tracked).
-        Returns the w2c table the following chunks map with."""
+        Its history row, flushed at once, holds the mean loss at the poses
+        returned and at the poses started from (never below it: each
+        refinement's first pose is its start) and the pass's seconds up to
+        the host read of those losses. Returns the w2c table the following
+        chunks map with."""
         ts = [int(t) for t in np.asarray(self.seq.i_train) if t != 0]
-        quats, trans, best, overflow = refine_poses_scan(
+        t0 = time.time()
+        quats, trans, best, overflow, start = refine_poses_scan(
             self.field, self.poses.quats, self.poses.trans, self.colors, ts,
             self.cam, iters=self.pose_ba_iters, lr=self.pose_ba_lr,
             sh_degree=self.active_sh_degree,
             max_instances=self.cfg.instance_cap)
         self.poses = PoseTable(quats=quats, trans=trans)
-        mean_loss = float(best.mean())
+        mean_loss = float(best.mean())       # host read: the pass is done
+        seconds = time.time() - t0
         self.log_fn(f"[global {total}] pose-BA pass over {len(ts)} train "
                     f"frames: mean photometric loss {mean_loss:.4f}")
         self.history.append({"stage": "pose_ba", "iter": total,
                              "mean_loss": mean_loss,
+                             "start_mean_loss": float(start.mean()),
+                             "seconds": seconds,
                              "overflow": float(overflow)})
+        self._flush_history()
         with torch.no_grad():
             return self.poses.all_w2c()
 

@@ -45,6 +45,10 @@ from freesurgs_tpu_torch.train.optim import adam_init as tadam_init
 from test_pallas_raster import make_scene as raster_scene
 from test_torch_train import PARAMS, close_params, scene, tcam  # noqa: F401
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 CAM = JCam(height=48, width=64, fx=60.0, fy=60.0, cx=32.0, cy=24.0)
 TCAM = tcam(CAM)
 N = 150

@@ -34,6 +34,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from freesurgs_tpu.data.scared import save_synthetic_as_scared
@@ -49,6 +50,10 @@ from freesurgs_tpu_torch.io.ply import ply_to_field as tply_to_field
 from freesurgs_tpu_torch.io.png import read_png
 
 from test_torch_train import PARAMS, close_params
+
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
 
 OVERRIDES = ["tracking_iters=4", "mapping_iters=3",
              "first_frame_mapping_iters=6", "w_local_pearson=0.0",

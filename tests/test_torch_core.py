@@ -18,6 +18,10 @@ from freesurgs_tpu_torch.core import camera as tcam
 from freesurgs_tpu_torch.core import sh as tsh
 from freesurgs_tpu_torch.core import transforms as ttf
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-6, rtol=1e-5)
 
 

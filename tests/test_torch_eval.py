@@ -11,6 +11,7 @@ relative on distances of ~1e-2.
 
 import numpy as np
 import pytest
+import torch
 
 from freesurgs_tpu.eval import image_metrics as jim
 from freesurgs_tpu.eval import lpips_jax as jlp
@@ -18,6 +19,10 @@ from freesurgs_tpu.eval import pose_metrics as jpm
 from freesurgs_tpu_torch.eval import image_metrics as tim
 from freesurgs_tpu_torch.eval import lpips as tlp
 from freesurgs_tpu_torch.eval import pose_metrics as tpm
+
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
 
 
 def trajectory(rng, n, noise):

@@ -28,6 +28,10 @@ from freesurgs_tpu_torch.train.flow_pnp import so3_exp as tso3
 
 from test_torch_train import scene, tcam  # noqa: F401  (fixture)
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("omega", [[0.0, 0.0, 0.0], [3e-5, -2e-5, 1e-5],
                                    [0.3, -0.2, 0.1]])

@@ -240,15 +240,21 @@ def test_run_config34_needs_data_and_out(tmp_path, missing):
     assert not (tmp_path / "run").exists()
 
 
-def test_fullscale_seed_and_evaluation(tmp_path, monkeypatch):
-    """``cli.fullscale --seed 8``: the seed reaches
-    ``cli.make_fullres_dataset``, and ``cli.eval_ckpt`` evaluates the run's
-    ``ckpt_final`` on its dataset, its line (the validation again, and the
-    pose-refined test PSNR) written as ``eval_ckpt.json`` beside the
-    summaries. The card's calls are stubbed; each command runs on the CPU
-    at the sizes above (5 frames at 32x48, the TrainConfig depth cut, 2
-    global iterations, 2 refinement iterations)."""
-    seen = {}
+def stub_device(monkeypatch) -> None:
+    """``cli.fullscale``'s calls to the card, stubbed."""
+    monkeypatch.setattr(fullscale, "device_label", lambda dev: "stub")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for name in ("reset_peak_memory_stats", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+
+
+def stub_card(monkeypatch, seen: dict) -> None:
+    """Run ``cli.fullscale``'s commands on the CPU at the sizes above (5
+    frames at 32x48, the TrainConfig depth cut, 2 global iterations, 2
+    refinement iterations), recording each command's parsed arguments in
+    ``seen``; the card's calls are stubbed (``stub_device``)."""
     real_mfd, real_rc34, real_eval = mfd.main, rc34.main, eval_ckpt.run
 
     def fake_mfd(argv):
@@ -257,6 +263,7 @@ def test_fullscale_seed_and_evaluation(tmp_path, monkeypatch):
                          "--seed", str(a.seed)] + SMALL)
 
     def fake_rc34(argv):
+        seen["run_config34_argv"] = list(argv)
         seen["run_config34"] = a = rc34.parse(argv)
         return real_rc34([
             "--data", a.data, "--out", a.out, "--frames", "5",
@@ -264,7 +271,8 @@ def test_fullscale_seed_and_evaluation(tmp_path, monkeypatch):
             str(a.rebin_every), "--tracking_gn_iters",
             str(a.tracking_gn_iters), "--global_iters", "2",
             "--global_chunk", "2", "--pose_ba_iters", "2", "--save_ckpt",
-            "--pose_ba_final", str(a.pose_ba_final), "--device", "cpu"])
+            "--pose_ba_final", str(a.pose_ba_final), "--pose_ba_every",
+            str(a.pose_ba_every and 2), "--device", "cpu"])
 
     def fake_eval(args):
         seen["eval_ckpt"] = dict(vars(args))
@@ -275,12 +283,17 @@ def test_fullscale_seed_and_evaluation(tmp_path, monkeypatch):
     monkeypatch.setattr(rc34, "main", fake_rc34)
     monkeypatch.setattr(rc34, "TrainConfig", FAST)
     monkeypatch.setattr(eval_ckpt, "run", fake_eval)
-    monkeypatch.setattr(fullscale, "device_label", lambda dev: "stub")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for name in ("reset_peak_memory_stats", "synchronize"):
-        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
-                        lambda *a, **k: 0)
+    stub_device(monkeypatch)
+
+
+def test_fullscale_seed_and_evaluation(tmp_path, monkeypatch):
+    """``cli.fullscale --seed 8``: the seed reaches
+    ``cli.make_fullres_dataset``, and ``cli.eval_ckpt`` evaluates the run's
+    ``ckpt_final`` on its dataset, its line (the validation again, and the
+    pose-refined test PSNR) written as ``eval_ckpt.json`` beside the
+    summaries (``stub_card``)."""
+    seen = {}
+    stub_card(monkeypatch, seen)
 
     results = tmp_path / "results"
     assert fullscale.main(["--results", str(results), "--seed", "8"]) == 0
@@ -300,3 +313,56 @@ def test_fullscale_seed_and_evaluation(tmp_path, monkeypatch):
     assert all(line[k] == summary[k] for k in ("psnr", "ssim", "ate"))
     assert summary["make_fullres_dataset_argv"][2:4] == ["--seed", "8"]
     assert not data.exists()                 # the work directory is gone
+
+
+# Arm A's run_config34 command line, as its recorded runs ran it
+ARM_A = ["--frames", "46", "--depth_prior", "metric", "--rebin_every", "4",
+         "--global_iters", "30000", "--global_chunk", "250",
+         "--tracking_gn_iters", "8", "--save_ckpt", "--pose_ba_final", "1",
+         "--budget_s", "2700", "--device", "cuda"]
+
+
+@pytest.mark.parametrize("every", [None, 0, 2500])
+def test_fullscale_pose_ba_every_argv(tmp_path, monkeypatch, every):
+    """``cli.fullscale --pose_ba_every N`` reaches ``cli.run_config34``'s
+    command line (cfg34_r5b's arm at 2500); by default, and at 0, that
+    command line is Arm A's as it was."""
+    seen = {}
+    monkeypatch.setattr(mfd, "main", lambda argv: {})
+    monkeypatch.setattr(rc34, "main",
+                        lambda argv: seen.setdefault("argv", argv) and 0)
+    stub_device(monkeypatch)
+    argv = ["--results", str(tmp_path / "results")]
+    if every is not None:
+        argv += ["--pose_ba_every", str(every)]
+    assert fullscale.main(argv) == 0
+    got = seen["argv"]
+    assert got[0] == "--data" and got[2] == "--out"
+    assert got[4:] == ARM_A + (["--pose_ba_every", "2500"] if every else [])
+    assert rc34.parse(got).pose_ba_every == (every or 0)
+    summary = json.loads((tmp_path / "results" / "summary.json").read_text())
+    assert summary["run_config34_argv"] == got
+    assert summary["pose_ba_passes"] == []
+
+
+def test_fullscale_records_pose_ba_passes(tmp_path, monkeypatch):
+    """``cli.fullscale --pose_ba_every N`` (``stub_card``: N becomes 2 of
+    the 2 global iterations) records the Trainer's row of each pose-BA
+    pass, the mid-global one and the final one, as metrics.jsonl holds it:
+    its iteration, seconds, and the mean start and returned losses, the
+    returned never above the start (the monotone guard)."""
+    seen = {}
+    stub_card(monkeypatch, seen)
+    results = tmp_path / "results"
+    assert fullscale.main(["--results", str(results), "--pose_ba_every",
+                           "2500"]) == 0
+    assert seen["run_config34"].pose_ba_every == 2500
+    summary = json.loads((results / "summary.json").read_text())
+    passes = summary["pose_ba_passes"]
+    assert [p["iter"] for p in passes] == [2, 2]      # mid-global, final
+    for p in passes:
+        assert p["mean_loss"] <= p["start_mean_loss"]
+        assert np.isfinite(p["seconds"]) and p["seconds"] >= 0
+    rows = [json.loads(ln) for ln in
+            (results / "metrics.jsonl").read_text().splitlines()]
+    assert passes == [r for r in rows if r.get("stage") == "pose_ba"]

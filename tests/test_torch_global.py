@@ -33,6 +33,10 @@ from freesurgs_tpu_torch.utils.logging import MetricsLogger
 
 from test_torch_train import PARAMS, close_params, tcam
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 KW = dict(tracking_iters=4, mapping_iters=3, first_frame_mapping_iters=6,
           w_local_pearson=0.0, densify_interval=10_000,
           opacity_reset_interval=13, sh_increase_interval=8)

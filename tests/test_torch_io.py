@@ -32,6 +32,10 @@ from freesurgs_tpu_torch.io import png
 from freesurgs_tpu_torch.utils import image as timg
 from freesurgs_tpu_torch.utils.logging import MetricsLogger as TLogger
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 SIZES = [(1, 1), (37, 53), (64, 80)]
 
 

@@ -32,6 +32,10 @@ from freesurgs_tpu_torch.train.optim import adam_init as tadam_init
 
 from test_torch_train import PARAMS, close_params, scene, tcam  # noqa: F401
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 # large enough that the 20 px edge leaves most of the image
 CAM = JCam(height=96, width=128, fx=120.0, fy=120.0, cx=64.0, cy=48.0)
 

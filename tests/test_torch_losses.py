@@ -23,6 +23,10 @@ from freesurgs_tpu_torch.ops.ssim import ssim as tssim
 from freesurgs_tpu_torch.train import losses as tl
 from freesurgs_tpu_torch.train import optim as to
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 
 def T(x, grad=False):
     return torch.tensor(np.asarray(x), requires_grad=grad)

@@ -27,6 +27,10 @@ from freesurgs_tpu_torch.models import pose as tpose
 from freesurgs_tpu_torch.ops.knn import initial_log_scales as tknn
 from freesurgs_tpu_torch.train import densify as td
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 FIELDS = ("means", "quats", "log_scales", "logit_opacity", "sh_dc",
           "sh_rest", "active", "max_radii2d", "grad_accum", "grad_denom",
           "scene_radius")

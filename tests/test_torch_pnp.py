@@ -30,6 +30,10 @@ from freesurgs_tpu_torch.train import steps as ts
 
 from test_torch_train import tcam
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 POSE_TOL = 0.01
 
 

@@ -26,6 +26,10 @@ from freesurgs_tpu_torch.train.loop import Trainer
 
 from test_torch_train import tcam
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 Q_OFF = np.asarray([0.9998, 0.012, -0.008, 0.01], np.float32)
 T_OFF = np.asarray([0.03, -0.02, 0.015], np.float32)
 
@@ -78,11 +82,12 @@ def test_refine_pose_matches_jax(scene):
     jq, jt, jl = jpr.refine_pose(jf, jnp.asarray(quats0[1]),
                                  jnp.asarray(trans0[1]), sc.colors[1],
                                  sc.cam, impl="oracle", **kw)
-    tq, tt, tl, ov = tpr.refine_pose(
+    tq, tt, tl, ov, tl0 = tpr.refine_pose(
         tf, torch.tensor(quats0[1]), torch.tensor(trans0[1]),
         torch.tensor(np.asarray(sc.colors[1])), tcam(sc.cam), **kw)
     init = _loss_at(tf, torch.tensor(quats0[1]), torch.tensor(trans0[1]),
                     torch.tensor(np.asarray(sc.colors[1])), tcam(sc.cam))
+    assert float(tl0) == init                      # the start pose's loss
     assert float(tl) < init - 1e-3                 # it did refine
     np.testing.assert_allclose(np.asarray(jq), tq.numpy(), atol=1e-5)
     np.testing.assert_allclose(np.asarray(jt), tt.numpy(), atol=1e-5)
@@ -98,14 +103,18 @@ def test_refine_poses_scan_matches_jax(scene):
         jf, jnp.asarray(quats0), jnp.asarray(trans0), sc.colors,
         jnp.asarray([1, 2]), sc.cam, impl="oracle", **kw)
     q_in, t_in = torch.tensor(quats0), torch.tensor(trans0)
-    tq, tt, tl, _ = tpr.refine_poses_scan(
-        tf, q_in, t_in, torch.tensor(np.asarray(sc.colors)), [1, 2],
-        tcam(sc.cam), **kw)
+    colors = torch.tensor(np.asarray(sc.colors))
+    tq, tt, tl, _, tl0 = tpr.refine_poses_scan(
+        tf, q_in, t_in, colors, [1, 2], tcam(sc.cam), **kw)
     np.testing.assert_allclose(np.asarray(jq), tq.numpy(), atol=1e-5)
     np.testing.assert_allclose(np.asarray(jt), tt.numpy(), atol=1e-5)
     np.testing.assert_allclose(np.asarray(jl), tl.numpy(), rtol=1e-4)
     assert torch.equal(tq[0], q_in[0]) and torch.equal(tt[0], t_in[0])
     assert torch.equal(q_in, torch.tensor(quats0))   # inputs not written
+    # each frame's start loss, at the pose it was handed
+    assert tl0.tolist() == [_loss_at(tf, q_in[t], t_in[t], colors[t],
+                                     tcam(sc.cam)) for t in (1, 2)]
+    assert bool((tl <= tl0).all())
 
 
 def test_refine_pose_is_monotone(scene):
@@ -114,10 +123,10 @@ def test_refine_pose_is_monotone(scene):
     sc, _, tf, quats0, trans0 = scene
     q0, t0 = torch.tensor(quats0[1]), torch.tensor(trans0[1])
     gt = torch.tensor(np.asarray(sc.colors[1]))
-    tq, tt, tl, _ = tpr.refine_pose(tf, q0, t0, gt, tcam(sc.cam), iters=4,
-                                    lr=0.5)
+    tq, tt, tl, _, tl0 = tpr.refine_pose(tf, q0, t0, gt, tcam(sc.cam),
+                                         iters=4, lr=0.5)
     assert torch.equal(tq, q0) and torch.equal(tt, t0)
-    assert float(tl) == _loss_at(tf, q0, t0, gt, tcam(sc.cam))
+    assert float(tl) == float(tl0) == _loss_at(tf, q0, t0, gt, tcam(sc.cam))
 
 
 # ------------------------------------------------------- the Trainer pass
@@ -160,6 +169,9 @@ def test_trainer_pose_ba_rows_and_pinned_frames(ba_runs):
     rows = [h for h in a.history if h["stage"] == "pose_ba"]
     assert [h["iter"] for h in rows] == [5, 10]
     assert all(np.isfinite(h["mean_loss"]) and h["overflow"] == 0
+               for h in rows)
+    # the monotone guard, and the pass's own clock
+    assert all(h["mean_loss"] <= h["start_mean_loss"] and h["seconds"] >= 0
                for h in rows)
     for t in (0, 2):                   # frame 0 pinned, test frame 2
         assert torch.equal(a.poses.quats[t], before[0][t])

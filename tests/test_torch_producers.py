@@ -38,6 +38,10 @@ from freesurgs_tpu_torch.data.synthetic import make_nonrigid_scene, \
     make_scene
 from freesurgs_tpu_torch.io.png import read_png
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 WARP_TOL = 1e-5
 HS_TOL = 1e-3
 DISP_RTOL = 1e-5

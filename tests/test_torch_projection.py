@@ -24,6 +24,10 @@ from freesurgs_tpu_torch.core.transforms import build_w2c as tbuild, \
 from freesurgs_tpu_torch.ops.projection import build_cov3d as tcov, \
     project_gaussians as tproj
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 KW = dict(height=40, width=56, fx=50.0, fy=52.0, cx=28.0, cy=20.0)
 
 
@@ -87,7 +91,7 @@ def test_projection_gradients_incl_pose():
         return (jnp.sum(p.mean2d * w1 * vis_f) + jnp.sum(p.conic * w2 * vis_f)
                 + jnp.sum(p.depth * w1[:, 0]))
 
-    gj = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
+    gj = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3, 4)))(
         *map(jnp.asarray, (means, scales, quats, q0, t0)))
     ts = [torch.tensor(x, requires_grad=True)
           for x in (means, scales, quats, q0, t0)]

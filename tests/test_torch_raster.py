@@ -31,6 +31,10 @@ from freesurgs_tpu_torch.ops.raster_cuda import RasterConfig, \
     composite_pair_counts, gaussian_grad_sum, gaussian_grad_sum_plain, \
     instance_records, rasterize
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 PIX_TOL = 2e-5
 GRAD_TOL = 5e-5
 
@@ -89,7 +93,8 @@ def port(cam, proj, max_instances=1 << 20):
 
 def compare(jf, tf, proj, rgbz, opac, g_img, g_T):
     args = (np.asarray(proj.mean2d), np.asarray(proj.conic), rgbz, opac)
-    (ji, jT), vjp = jax.vjp(jf, *map(jnp.asarray, args))
+    # under jit: one compile instead of one dispatch a primitive
+    (ji, jT), vjp = jax.vjp(jax.jit(jf), *map(jnp.asarray, args))
     ts = [torch.tensor(a, requires_grad=True) for a in args]
     ti, tT, overflow = tf(*ts)
     assert int(overflow) == 0

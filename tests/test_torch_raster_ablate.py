@@ -26,6 +26,10 @@ from freesurgs_tpu_torch.ops.raster_ablate import (
 from freesurgs_tpu_torch.ops.raster_cuda import (
     RasterConfig, _prune_and_snug, composite_fwd_plain, instance_records)
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 PIX_TOL = 2e-5
 H, W = 40, 56
 

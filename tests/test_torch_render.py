@@ -23,6 +23,10 @@ from freesurgs_tpu_torch.core.camera import Camera as TCam
 from freesurgs_tpu_torch.data.synthetic import make_scene as tmake_scene
 from freesurgs_tpu_torch.ops.render import render as trender
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 H, W = 40, 56
 CAMKW = dict(height=H, width=W, fx=0.9 * W, fy=0.9 * W, cx=W / 2, cy=H / 2)
 N_ACTIVE, CAP = 250, 320

@@ -12,11 +12,16 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from freesurgs_tpu.data import scared as jsc
 from freesurgs_tpu_torch.core.camera import Camera as TCam
 from freesurgs_tpu_torch.data import scared as tsc
 from freesurgs_tpu_torch.io.png import read_png
+
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
 
 
 def _scene(t=5, h=24, w=32, seed=0):

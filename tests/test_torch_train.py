@@ -35,6 +35,10 @@ from freesurgs_tpu_torch.train import steps as ts
 from freesurgs_tpu_torch.train.loop import Trainer as TTrainer
 from freesurgs_tpu_torch.train.optim import adam_init as tadam_init
 
+# One intra-op thread: these tensors are small, and the suite runs six
+# workers on the machine's cores.
+torch.set_num_threads(1)
+
 PARAMS = ("means", "quats", "log_scales", "logit_opacity", "sh_dc",
           "sh_rest")
 
