@@ -26,6 +26,15 @@ Phases, each printing one JSON line with its seconds:
      graph, since the sum is shorter than the host's time to launch it,
      and on the stream as before), with the pairs the records need, the
      least time the card could take (bound_ms) and the sum's run lengths;
+  5b. prefix_parity + prefix_timing — the JAX default's reduction
+     (``gaussian_grad_prefix``, grad_sum="prefix") on the bench scene
+     binned with pre-slots: ``pre_rank`` a permutation of the slots with
+     padding past the kept expansion, the runs [seg_lo, seg_hi) tiling the
+     kept expansion, K2 writing at ``pre_rank`` twice and the kernel on its
+     rows bitwise equal over launches and bitwise its plain version,
+     within PREFIX_VS_DIRECT_TOL of the direct sum of the same rows (the
+     difference printed); its device time (CUDA graph), stream time,
+     plain time, and ``torch.cumsum`` + the two lookups as the library's;
   6. ablate  — K3, the ablation family of today's K1 (ops/raster_ablate.py,
      one Hopper mechanism switched off a variant): the timing run over
      every variant on the bench scene, its launch counts read just after;
@@ -41,6 +50,11 @@ Phases, each printing one JSON line with its seconds:
      it and read just after. Frame 0's records at the end of the global
      stage are kept, and after the run K1 / K2 get phases 4 and 5 again on
      them (layout "slice_frame0": the main path's own shapes);
+  7b. prefix — a Trainer with grad_sum="prefix" on the slice's scene:
+     progressive SLAM and 10 global iterations, counters reset just before
+     and read just after (K2 and the prefix reduction once a backward, the
+     direct sum never), frame 0's PSNR rising with its mapping; then
+     phase 5b again on frame 0's records (layout "slice_frame0");
   8. reuse   — the same scene with the binning-layout carry
      (rebin_every=4, rebin_tracking_every=5) and pose BA every 20 global
      iterations (5 Adam steps a frame): progressive SLAM, then 40 global
@@ -123,7 +137,8 @@ Phases, each printing one JSON line with its seconds:
      rank beside the single-process render. Launch counters reset on every
      rank just before (a) and read just after (c), before the references;
  17. kernels — the launches by path, then one JSON line with every
-     kernel's numbers (K1 / K2 / the sum from the slice_frame0 layout,
+     kernel's numbers (K1 / K2 / the sum / the prefix reduction from the
+     slice_frame0 layout,
      their launches summed over every path, the ranks' added for
      parallel; K3 from the bench scene);
 then, last, {"ok": true, "device": {...}}.
@@ -193,19 +208,31 @@ BWD_FIELD_TOL = 5e-5        # per-Gaussian gradient, normalized per field
 #                             (the JAX package's oracle-vs-Pallas gate)
 GN_MIN_WEIGHT = 64.0        # flow_pnp_refine's degenerate-frame guard
 
-# What each kernel of the training path replaces: K1, K2, and the
-# per-Gaussian sum after K2 (the reduction of _composite_bwd).
+# The prefix reduction against the direct sum on the same K2 rows. The two
+# reductions part by the rounding of one prefix sum over all M rows: JAX's
+# fast binner against its own sort binner reads 3.77e-3 normalized on one
+# 1280x1024 render (tests/fullwidth_witness.py, step 3), far past kernel
+# parity's 5e-5, so this gate only catches a reduction of the wrong rows.
+PREFIX_VS_DIRECT_TOL = 1e-2
+PREFIX_GLOBAL = 10          # global iterations of the prefix Trainer run
+
+# What each kernel of the training path replaces: K1, K2, the per-Gaussian
+# sum after K2 (_composite_bwd's reduction with fast_binning=False) and,
+# under grad_sum="prefix", its default fast_binning=True reduction.
 MAIN_PATH_REPLACES = ("freesurgs_tpu/ops/raster_pallas.py:307",
                       "freesurgs_tpu/ops/raster_pallas.py:415",
-                      "freesurgs_tpu/ops/raster_pallas.py:737")
+                      "freesurgs_tpu/ops/raster_pallas.py:757")
+PREFIX_REPLACES = "freesurgs_tpu/ops/raster_pallas.py:737"
 
 
-def launch_counts(fwd: int, bwd: int) -> dict[str, int]:
+def launch_counts(fwd: int, bwd: int, prefix: bool = False
+                  ) -> dict[str, int]:
     """The compositing kernels' launches for ``fwd`` forward and ``bwd``
     backward renders: each backward launches K2, then the per-Gaussian
-    sum."""
+    sum, or with ``prefix`` (grad_sum="prefix") the prefix reduction."""
     return {"composite_fwd": fwd, "composite_bwd": bwd,
-            "gaussian_grad_sum": bwd}
+            "gaussian_grad_sum": 0 if prefix else bwd,
+            "gaussian_grad_prefix": bwd if prefix else 0}
 
 
 def phase(name: str, t0: float, **kw) -> None:
@@ -463,6 +490,196 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
           library_note="no single PyTorch call computes K1 or K2; "
                        "index_add_ computes the per-Gaussian sum")
     return rows
+
+
+def prefix_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
+                  n: int) -> dict:
+    """The prefix reduction (``gaussian_grad_prefix``) on one layout binned
+    with pre-slots: ``pre_rank`` a permutation of the slots (padding past
+    the kept expansion), the runs [seg_lo, seg_hi) tiling the kept
+    expansion; K2 writing at ``pre_rank`` twice (bitwise equal), the kernel
+    on both launches' rows and twice on the same rows (bitwise equal),
+    bitwise its plain version, and within PREFIX_VS_DIRECT_TOL of the
+    direct sum of K2's rows at ``sum_rank`` (the same rows, placed
+    otherwise); then its device time (CUDA graph), stream time, plain time
+    and the library yardstick's. Prints the layout's ``prefix_parity`` and
+    ``prefix_timing`` lines; returns the kernel's numbers."""
+    import torch
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.ops.raster_ablate import cuda_graph_ms, cuda_ms
+
+    t0 = time.time()
+    gx, gy = cfg.grid_x, cfg.grid_y
+    starts, counts, gidx = bins.tile_start, bins.tile_count, bins.gather_idx
+    rank, lo, hi = bins.pre_rank, bins.seg_lo, bins.seg_hi
+    m = feat.shape[1]
+    kept = int(bins.num_instances)
+    check(cfg.grad_sum == "prefix" and rank is not None,
+          f"{layout}: not binned with pre-slots")
+    check(int(bins.overflow) == 0, f"{layout} overflowed: {bins.overflow}")
+    fails = []
+    perm_ok = torch.equal(torch.sort(rank).values, torch.arange(
+        m, dtype=torch.int32, device=dev))
+    pad_ok = bool((rank[gidx == n] >= kept).all())
+    if not (perm_ok and pad_ok):
+        fails.append(f"pre_rank: permutation {perm_ok}, padding past the "
+                     f"kept expansion {pad_ok}")
+    runs = hi > lo
+    order = torch.argsort(lo[runs])
+    lo_r, hi_r = lo[runs][order], hi[runs][order]
+    tile_ok = (int(lo_r[0]) == 0 and int(hi_r[-1]) == kept
+               and torch.equal(lo_r[1:], hi_r[:-1]))
+    if not tile_ok:
+        fails.append("seg_lo / seg_hi do not tile the kept expansion")
+
+    out_k, keff_k = rc.composite_fwd(feat, rect, starts, counts, gx, gy)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    gout = torch.randn(out_k.shape, generator=gen, device=dev)
+    gout[7] = 0.0
+    gout[:, H:, :] = 0.0
+    gout[:, :, W:] = 0.0
+    pre = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k, gout,
+                           rank, gx, gy)
+    pre2 = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k, gout,
+                            rank, gx, gy)
+    gk = rc.gaussian_grad_prefix(pre, lo, hi)
+    gk_again = rc.gaussian_grad_prefix(pre, lo, hi)
+    gk2 = rc.gaussian_grad_prefix(pre2, lo, hi)
+    torch.cuda.synchronize()
+    repeat_ok = (torch.equal(pre, pre2) and torch.equal(gk, gk_again)
+                 and torch.equal(gk, gk2))
+    if not repeat_ok:
+        fails.append("K2 at pre_rank + gaussian_grad_prefix: two launches "
+                     "differ")
+    del pre2, gk_again, gk2
+    g_plain = rc.gaussian_grad_prefix_plain(pre, lo, hi)
+    plain_err = float((gk - g_plain).abs().max())
+    plain_ok = torch.equal(gk, g_plain)
+    if not plain_ok:
+        fails.append(f"gaussian_grad_prefix differs from its plain version "
+                     f"by {plain_err}")
+    del g_plain
+    dsum = rc.composite_bwd(feat, rect, starts, counts, keff_k, out_k, gout,
+                            bins.sum_rank, gx, gy)
+    rows_ok = torch.equal(dsum[bins.sum_rank.long()], pre[rank.long()])
+    if not rows_ok:
+        fails.append("K2's rows at sum_rank and at pre_rank differ")
+    direct = rc.gaussian_grad_sum(dsum, bins.sum_start)
+    vs_direct = normalized_field_err(gk, direct)
+    if not max(vs_direct) <= PREFIX_VS_DIRECT_TOL:
+        fails.append(f"prefix vs direct sum: normalized err {vs_direct}")
+    del dsum, direct
+    phase("prefix_parity", t0, layout=layout, instances=m, kept=kept,
+          levels=rc.scan_levels(m), pre_rank_is_permutation=perm_ok,
+          padding_past_kept_expansion=pad_ok, runs_tile_expansion=tile_ok,
+          bitwise_over_two_launches=repeat_ok,
+          vs_plain_max_abs_err=plain_err, bitwise_plain=plain_ok,
+          k2_rows_equal_at_both_ranks=rows_ok,
+          vs_direct_normalized_err_per_field=vs_direct,
+          tolerances={"vs_plain": "bitwise equal",
+                      "repeat": "bitwise equal",
+                      "vs_direct": PREFIX_VS_DIRECT_TOL})
+    check(not fails, f"{layout} prefix: " + "; ".join(fails))
+
+    t0 = time.time()
+    call = lambda: rc.gaussian_grad_prefix(pre, lo, hi)  # noqa: E731
+    lo_l, hi_l = lo.long(), hi.long()
+
+    def lib_call():
+        # torch.cumsum and the two lookups: the same function, not in the
+        # JAX order (not bitwise)
+        csum = torch.cat([pre.new_zeros(1, rc.N_FIELD),
+                          torch.cumsum(pre, 0)])
+        return csum[hi_l] - csum[lo_l]
+
+    lib_err = float((lib_call() - gk).abs().max())
+    ms = cuda_graph_ms(call, iters=20)
+    ms_stream = cuda_ms(call, iters=20)
+    lib_ms = cuda_graph_ms(lib_call, iters=20)
+    plain_ms = cuda_ms(lambda: rc.gaussian_grad_prefix_plain(pre, lo, hi),
+                       iters=3, warmup=1)
+    # pre read once (40 B a row), seg_lo / seg_hi read and out written once;
+    # at least one add an element of pre and one subtraction an output
+    nbytes = 4 * rc.N_FIELD * m + 8 * n + 4 * rc.N_FIELD * n
+    ops = float(rc.N_FIELD * (m + n))
+    b_ms, b_by = bound(ops, nbytes)
+    phase("prefix_timing", t0, layout=layout, instances=m, gaussians=n,
+          ms=ms, stream_timed_ms=ms_stream, plain_ms=plain_ms,
+          library_ms=lib_ms, library_max_abs_diff=lib_err,
+          library_note="torch.cumsum over (M, 10) and the two lookups; "
+                       "not the JAX order, not bitwise",
+          bytes=nbytes, ops=ops, bound_ms=b_ms, bound_by=b_by,
+          share_of_bound=b_ms / ms)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": plain_err, "library_ms": lib_ms}
+
+
+def run_prefix(dev, results) -> dict:
+    """A Trainer with grad_sum="prefix" on the slice's scene: progressive
+    SLAM, then PREFIX_GLOBAL global iterations. Launch counters reset just
+    before it and read just after: K2 and the prefix reduction once a
+    backward, the direct sum never; frame 0's PSNR rises with its mapping.
+    Then ``prefix_checks`` on frame 0's records, and the kernel's row."""
+    import torch
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.ops.render import render_records
+    from freesurgs_tpu_torch.train.loop import Trainer
+    from freesurgs_tpu_torch.train.steps import TrainConfig
+
+    t0 = time.time()
+    scene, seq = slice_sequence(dev)
+    cfg = TrainConfig(**SLICE_CFG, grad_sum="prefix")
+    logs = []
+    tr = Trainer(seq, cfg, log_fn=logs.append, device=dev, **SLICE_TRAINER)
+    torch.cuda.synchronize()
+
+    # ---- the main path, counters reset just before it
+    rc.reset_launches()
+    t_run = time.time()
+    psnr_before = psnr(tr.render_frame(0)["render"], seq.colors[0])
+    tr.progressive_run()
+    psnr_cached = psnr(tr.state.pred_colors[0].float(), seq.colors[0])
+    tr.global_run(PREFIX_GLOBAL)
+    torch.cuda.synchronize()
+    seconds = time.time() - t_run
+    launches = dict(rc.LAUNCHES)
+    # ---- end of the main path
+
+    exp_fwd, exp_bwd, iters = progressive_counts(cfg, seq)
+    exp_fwd += 1 + PREFIX_GLOBAL
+    exp_bwd += PREFIX_GLOBAL
+    losses = [h["loss"] for h in tr.history if "loss" in h]
+    phase("prefix", t0, run_seconds=seconds, launches=launches,
+          expected_launches=launch_counts(exp_fwd, exp_bwd, prefix=True),
+          psnr_frame0_before=psnr_before,
+          psnr_frame0_after_mapping=psnr_cached,
+          global_losses=[h["loss"] for h in tr.history
+                         if h["stage"] == "global"],
+          active_gaussians=int(tr.field.num_active))
+    check(all(math.isfinite(float(x)) for x in losses),
+          f"prefix run: non-finite loss {losses}")
+    check(launches == launch_counts(exp_fwd, exp_bwd, prefix=True),
+          f"prefix run: launches {launches} != renders made "
+          f"({exp_fwd}, {exp_bwd})")
+    check(psnr_cached > psnr_before,
+          f"prefix run: frame-0 PSNR did not improve: {psnr_before} -> "
+          f"{psnr_cached}")
+
+    fld = tr.field
+    frame0 = render_records(fld.means, fld.quats, fld.log_scales,
+                            fld.logit_opacity, fld.sh, tr.poses.w2c(0),
+                            tr.cam, active=fld.active,
+                            sh_degree=tr.active_sh_degree,
+                            max_instances=tr.cfg.instance_cap,
+                            grad_sum="prefix")
+    row = prefix_checks(dev, "slice_frame0", tr.cam.height, tr.cam.width,
+                        *frame0, fld.capacity)
+    results["kernels"].append({
+        "name": "gaussian_grad_prefix", "route": "cuda",
+        "source": "freesurgs_tpu_torch/csrc/gaussian_grad_prefix.cu",
+        "replaces": PREFIX_REPLACES, "launches": 0, **row})
+    return {"prefix": launches}
 
 
 # K3 variants that compute K1's function with K1's arithmetic per pair:
@@ -2793,10 +3010,15 @@ def main() -> int:
     kernel_checks(dev, "bench_scene", cam.height, cam.width, *bench[1:])
     results["kernels"] = []
     run_ablate(bench, results)
-    del bench, params
+    del bench
+    cfg_p, *records_p = records_for(cam, params, grad_sum="prefix")
+    prefix_checks(dev, "bench_scene", cam.height, cam.width, cfg_p,
+                  *records_p)
+    del params, records_p
     with tempfile.TemporaryDirectory() as ckpt_root:
         slice_summary = run_slice(dev, results, Path(ckpt_root))
     paths = {"slice": slice_summary["launches"],
+             **run_prefix(dev, results),
              "reuse": run_reuse(dev, slice_summary),
              "overlap": run_overlap(dev),
              "cli": run_cli(dev, smi, slice_summary)}
@@ -2807,10 +3029,11 @@ def main() -> int:
         paths.update(run_viz(dev, smi, Path(tmp)))
         paths.update(run_bench(dev, smi, Path(tmp)))
     paths.update(run_parallel(dev, smi))
-    # K1 / K2 / the sum's launches: the sum over the paths, each counted
-    # alone
-    for row in results["kernels"][:len(MAIN_PATH_REPLACES)]:
-        row["launches"] = sum(p[row["name"]] for p in paths.values())
+    # K1 / K2 / the sum / the prefix reduction's launches: the sum over
+    # the paths, each counted alone
+    for row in results["kernels"]:
+        if row["name"] in rc.LAUNCHES:
+            row["launches"] = sum(p[row["name"]] for p in paths.values())
     print(json.dumps({"launches_by_path": paths}), flush=True)
     print(json.dumps({"kernels": results["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -63,7 +63,8 @@ def run(args) -> tuple[dict, dict]:
                 trainer.field, trainer.poses.quats[t], trainer.poses.trans[t],
                 trainer.colors[t], trainer.cam, iters=args.refine_iters,
                 sh_degree=trainer.active_sh_degree,
-                max_instances=trainer.cfg.instance_cap)
+                max_instances=trainer.cfg.instance_cap,
+                grad_sum=args.grad_sum)
             overflow = max(overflow, float(ov))
             trainer.poses = trainer.poses.set_frame(t, q, tr_)
             o = trainer.render_frame(t)
@@ -88,6 +89,10 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--frames", type=int, default=46)
     ap.add_argument("--refine_iters", type=int, default=100)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--grad_sum", default="direct",
+                    choices=("direct", "prefix"),
+                    help="the refinement renders' backward reduction "
+                         "(ops/raster_cuda.RasterConfig)")
     return ap.parse_args(argv)
 
 

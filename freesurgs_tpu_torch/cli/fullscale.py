@@ -1,7 +1,7 @@
 """The full-scale run of the port on one GPU (BASELINE configs 3-4).
 
     python -m freesurgs_tpu_torch.cli.fullscale --results <dir> [--seed 7]
-        [--pose_ba_every N]
+        [--pose_ba_every N] [--grad_sum direct|prefix]
 
 Generates the full-res recipe with ``cli.make_fullres_dataset --frames
 60 --seed <seed>`` (1280x1024, 20,000 Gaussians), then trains it with
@@ -10,7 +10,10 @@ Generates the full-res recipe with ``cli.make_fullres_dataset --frames
 --pose_ba_final 1 --budget_s 2700`` (cfg34_r5c's settings; the budget
 keeps the whole run under an hour; ``--pose_ba_every N`` adds the
 mid-global pose BA every N global iterations, cfg34_r5b's arm at 2500,
-and the default 0 leaves that argv as it is), both in this process, on
+and the default 0 leaves that argv as it is; ``--grad_sum prefix`` passes
+the JAX package's default backward reduction to it and to the
+evaluation's refinement, Arm C, and the default "direct" leaves both
+argvs as they are), both in this process, on
 the card (without a CUDA device it fails), and evaluates ``ckpt_final`` with
 ``cli.eval_ckpt`` (``--refine_iters 100``): the validation again and the
 pose-refined test PSNR, which separates the map's error from the tracked
@@ -18,6 +21,7 @@ test poses'. The dataset, checkpoints and PLY stay in a temporary
 directory, removed at the end (a checkpoint is too large to keep);
 ``--results`` receives what is small: ``summary.json`` and
 ``summary_ba.json`` with ``nvidia_smi`` (the card's name and power limit),
+``grad_sum`` (the reduction that ran),
 the peak allocated device memory, the largest instance count of any
 training render, each stage's iterations per second and the warnings the
 Trainer logged; ``eval_ckpt.json``, the evaluation's line; plus
@@ -74,12 +78,16 @@ def parse(argv=None):
                     help="mid-global pose-BA cadence passed to "
                          "cli.run_config34 (0 = off, Arm A; 2500 = "
                          "cfg34_r5b's arm)")
+    ap.add_argument("--grad_sum", default="direct",
+                    choices=("direct", "prefix"),
+                    help="the backward's per-Gaussian reduction (direct = "
+                         "Arm A; prefix = the JAX package's default, Arm C)")
     return ap.parse_args(argv)
 
 
 def run_config34_argv(args, data: Path, out: Path) -> list[str]:
     """The ``cli.run_config34`` command line of the run: Arm A's, plus
-    ``--pose_ba_every`` when it is set."""
+    ``--pose_ba_every`` and ``--grad_sum`` when they are set."""
     argv = ["--data", str(data), "--out", str(out),
             "--frames", str(TRAIN_FRAMES), "--depth_prior", "metric",
             "--rebin_every", "4", "--global_iters", str(GLOBAL_ITERS),
@@ -88,6 +96,8 @@ def run_config34_argv(args, data: Path, out: Path) -> list[str]:
             "--device", "cuda"]
     if args.pose_ba_every:
         argv += ["--pose_ba_every", str(args.pose_ba_every)]
+    if args.grad_sum != "direct":
+        argv += ["--grad_sum", args.grad_sum]
     return argv
 
 
@@ -119,7 +129,10 @@ def main(argv=None) -> int:
                  str(args.seed), "--device", "cuda"]
     argv_eval = ["--ckpt", str(out / "ckpt_final"), "--data", str(data),
                  "--frames", str(TRAIN_FRAMES), "--device", "cuda"]
-    info = {"nvidia_smi": smi, "torch": torch.__version__,
+    if args.grad_sum != "direct":
+        argv_eval += ["--grad_sum", args.grad_sum]
+    info = {"nvidia_smi": smi, "grad_sum": args.grad_sum,
+            "torch": torch.__version__,
             "cuda": torch.version.cuda, "make_fullres_dataset_argv":
             argv_data[2:], "run_config34_argv": argv34,
             "eval_ckpt_argv": argv_eval}

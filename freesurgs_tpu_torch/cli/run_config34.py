@@ -5,7 +5,7 @@
       [--frames 46] [--budget_s 1500] [--global_iters 6000] \
       [--global_chunk 250] [--rebin_every 4] [--save_ckpt] \
       [--checkpoint_every 5000] [--resume <ckpt>] [--pose_ba_final N] \
-      [--device cuda|cpu] ...
+      [--grad_sum direct|prefix] [--device cuda|cpu] ...
 
 Runs the reference schedule (progressive tracking + mapping per frame,
 then the global refinement stage, reference ``train.py:318-443``) on the
@@ -22,8 +22,11 @@ instance buffer exactly (up to ``max_instances_cap``); there is no
 ``right_size_instances`` before the final pose BA; and a failure of
 ``--pose_ba_final`` is not caught: it propagates and the command exits
 non-zero, after ``summary.json`` is on disk; ``--data`` and ``--out``
-are required (the JAX script defaults them to fixed paths under /tmp).
-Runs on the card unless
+are required (the JAX script defaults them to fixed paths under /tmp);
+``--grad_sum`` picks the backward's per-Gaussian reduction, "direct" by
+default, where the JAX script always takes its default ("prefix", its
+fast binner's; the summary's keys stay the JAX script's). Runs on the
+card unless
 ``--device cpu``; without a CUDA device it fails.
 """
 
@@ -115,6 +118,11 @@ def parse(argv=None) -> argparse.Namespace:
                     help="DIAGNOSTIC: skip tracking and train the map at "
                          "ground-truth poses (the map-quality ceiling; pose "
                          "metrics become trivially zero)")
+    ap.add_argument("--grad_sum", default="direct",
+                    choices=("direct", "prefix"),
+                    help="the training renders' backward per-Gaussian "
+                         "reduction: direct, or prefix (the JAX package's "
+                         "default, fast_binning=True)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -157,7 +165,8 @@ def main(argv=None) -> int:
                       rebin_every=args.rebin_every,
                       rebin_tracking_every=args.rebin_tracking_every,
                       tracking_gn_iters=args.tracking_gn_iters,
-                      keyframe_policy=args.keyframe_policy)
+                      keyframe_policy=args.keyframe_policy,
+                      grad_sum=args.grad_sum)
     trainer = Trainer(seq, cfg, global_chunk=args.global_chunk,
                       log_fn=lambda m: print(m, flush=True),
                       pose_init=args.pose_init,

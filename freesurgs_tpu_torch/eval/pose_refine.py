@@ -31,11 +31,12 @@ from ..train.optim import adam_init, adam_update, apply_updates
 
 def refine_pose(field: GaussianField, quat0, trans0, gt_image, cam: Camera,
                 *, iters: int = 100, lr: float = 3e-3, sh_degree: int = 0,
-                max_instances: int = 0):
+                max_instances: int = 0, grad_sum: str = "direct"):
     """Optimize one frame's (quat, trans) photometrically; field frozen.
     Returns (quat, trans, best_loss, overflow, start_loss), all on the
     device: no host read. ``start_loss`` is the loss at (quat0, trans0),
-    the first pose evaluated, so ``best_loss <= start_loss``."""
+    the first pose evaluated, so ``best_loss <= start_loss``. ``grad_sum``:
+    the renders' backward reduction (``ops/render.render``)."""
     dev = quat0.device
     pose = {"q": quat0.detach().clone(), "t": trans0.detach().clone()}
     opt = adam_init(pose)
@@ -50,7 +51,7 @@ def refine_pose(field: GaussianField, quat0, trans0, gt_image, cam: Camera,
                      field.logit_opacity, field.sh, build_w2c(q, t), cam,
                      active=field.active, sh_degree=sh_degree,
                      max_instances=max_instances, gs_grad=False,
-                     cam_grad=True)
+                     cam_grad=True, grad_sum=grad_sum)
         overflow = torch.maximum(overflow, out["overflow"].to(torch.float32))
         # unmasked: with no flow anchor a coverage mask would let the
         # optimizer shrink the evaluated region to easy pixels
@@ -74,7 +75,7 @@ def refine_pose(field: GaussianField, quat0, trans0, gt_image, cam: Camera,
 def refine_poses_scan(field: GaussianField, quats_all, trans_all,
                       colors_all, ts, cam: Camera, *, iters: int = 25,
                       lr: float = 1e-3, sh_degree: int = 0,
-                      max_instances: int = 0):
+                      max_instances: int = 0, grad_sum: str = "direct"):
     """Refine the poses of frames ``ts`` (host ints; usually the train
     frames but the pinned frame 0) against the frozen map, one after
     another. Returns (quats_all, trans_all) with the rows at ``ts``
@@ -87,7 +88,7 @@ def refine_poses_scan(field: GaussianField, quats_all, trans_all,
         q, tr, loss, ov, loss0 = refine_pose(
             field, quats_all[t], trans_all[t], colors_all[t], cam,
             iters=iters, lr=lr, sh_degree=sh_degree,
-            max_instances=max_instances)
+            max_instances=max_instances, grad_sum=grad_sum)
         quats_all[t], trans_all[t] = q, tr
         best.append(loss)
         start.append(loss0)

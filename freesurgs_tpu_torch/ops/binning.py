@@ -14,6 +14,12 @@ Eager PyTorch needs no static shapes, so the instance buffer is allocated
 at the exact padded total M on each call (one host read), capped at
 ``max_instances``. Past the cap the deepest instances of the suffix tiles
 drop, as in the JAX binner at the same capacity, and are counted.
+
+``build_tile_bins(..., pre_slots=True)`` also returns the byproducts of the
+JAX fast binner that its default backward reduction reads (``BinAux`` of
+``freesurgs_tpu/ops/binning_fast.py``): each slot's index in the
+depth-major expansion ("pre-slot" order: Gaussians front to back, each
+Gaussian's tiles row-major), and each Gaussian's run of pre-slots.
 """
 
 from __future__ import annotations
@@ -63,6 +69,16 @@ class TileBins(NamedTuple):
     sum_rank: torch.Tensor      # (M,) int32 inverse of sum_order: the row
     #                             of the backward's sum-ordered output that
     #                             slot s's gradients go to
+    # The prefix reduction's order (``pre_slots=True``; None otherwise):
+    pre_rank: torch.Tensor | None = None  # (M,) int32 slot -> pre-slot,
+    #                             a permutation of [0, M): kept slots go to
+    #                             their place in the expansion, padding
+    #                             slots fill the rest in ascending order
+    #                             (the expansion's dropped instances, then
+    #                             [expanded, M)); JAX's ``pos`` inverted
+    seg_lo: torch.Tensor | None = None    # (n,) int32 first pre-slot of
+    #                             each Gaussian, clamped to M
+    seg_hi: torch.Tensor | None = None    # (n,) int32 one past its last
 
 
 def sum_layout(gather_idx: torch.Tensor, n: int):
@@ -107,14 +123,35 @@ def padded_layout(tile_rect: torch.Tensor, grid_x: int, grid_y: int):
     return raw_count, padded_start, total_padded
 
 
+def pre_slot_layout(gather_idx: torch.Tensor, pos: torch.Tensor,
+                    pre: torch.Tensor, n: int) -> torch.Tensor:
+    """(M,) int32 slot -> pre-slot of a layout whose kept instances sit at
+    slots ``pos`` with pre-slot indices ``pre``. Padding slots (index n)
+    take the pre-slots no kept instance holds, both in ascending order, so
+    the map is a permutation; the backward writes a padding slot's row as
+    +0, which is what JAX's reduction reads at those pre-slots."""
+    m = gather_idx.shape[0]
+    used = torch.zeros(m, dtype=torch.int8, device=gather_idx.device)
+    used[pre] = 1
+    free = torch.argsort(used, stable=True)               # unheld first
+    pad = torch.argsort((gather_idx != n).to(torch.int8), stable=True)
+    rank = torch.empty(m, dtype=torch.int64, device=gather_idx.device)
+    rank[pad] = free        # padding slots take the unheld pre-slots;
+    rank[pos] = pre         # the kept slots' entries are set here
+    return rank.to(torch.int32)
+
+
 def build_tile_bins(proj: ProjectedGaussians, grid_x: int, grid_y: int,
-                    max_instances: int) -> TileBins:
+                    max_instances: int, pre_slots: bool = False) -> TileBins:
     """Bin ``proj`` (rects already at bin granularity) into tile runs.
 
     The buffer holds M = min(padded total, max_instances rounded down to
     CHUNK) slots: the layout equals the JAX ``build_tile_bins`` at
     capacity M, which keeps it independent of how large a capacity the
-    caller names.
+    caller names. ``pre_slots`` adds ``pre_rank`` / ``seg_lo`` /
+    ``seg_hi``, JAX's ``build_tile_bins_fast(..., return_aux=True)``
+    byproducts (``binning_fast.py:197-214``) at capacity M: below the cap
+    the expansion fits either capacity, so the clamps agree.
     """
     dev = proj.depth.device
     n = proj.depth.shape[0]
@@ -151,16 +188,26 @@ def build_tile_bins(proj: ProjectedGaussians, grid_x: int, grid_y: int,
     rank = torch.arange(e, device=dev) - raw_start[tile_sorted]
     pos = padded_start[tile_sorted] + rank
     keep = pos < m
+    pos_kept = pos[keep]
     gather_idx = torch.full((m,), n, dtype=torch.int64, device=dev)
-    gather_idx[pos[keep]] = g_orig[keep]
+    gather_idx[pos_kept] = g_orig[keep]
 
     fit_count = torch.minimum(torch.clamp_min(m - padded_start, 0), raw_count)
     kept = keep.sum().to(torch.int32)
     sum_order, sum_start, sum_rank = sum_layout(gather_idx, n)
+    pre = {}
+    if pre_slots:
+        # the expansion index of a sorted instance is its perm entry
+        pre["pre_rank"] = pre_slot_layout(gather_idx, pos_kept,
+                                          perm[keep], n)
+        seg_hi = torch.clamp_max(offsets, m).to(torch.int32)
+        seg_lo = torch.clamp_max(offsets - counts, m).to(torch.int32)
+        pre["seg_lo"] = torch.empty_like(seg_lo).index_put_((order,), seg_lo)
+        pre["seg_hi"] = torch.empty_like(seg_hi).index_put_((order,), seg_hi)
     return TileBins(gather_idx=gather_idx,
                     tile_start=padded_start.to(torch.int32),
                     tile_count=fit_count.to(torch.int32),
                     num_instances=kept,
                     overflow=(total - kept).to(torch.int32),
                     sum_order=sum_order, sum_start=sum_start,
-                    sum_rank=sum_rank)
+                    sum_rank=sum_rank, **pre)

@@ -120,9 +120,10 @@ def ablate_pair_counts(name: str, feat, rect, starts, counts,
 
 # ------------------------------------------------------------ the bench scene
 
-def records_for(cam: Camera, params):
-    """Project the scene and bin it exactly as ``render`` does:
-    (RasterConfig, feat, rect, TileBins, number of Gaussians)."""
+def records_for(cam: Camera, params, grad_sum: str = "direct"):
+    """Project the scene and bin it exactly as ``render`` does with this
+    ``grad_sum``: (RasterConfig, feat, rect, TileBins, number of
+    Gaussians)."""
     means, quats, log_scales, logit_op, sh = params
     with torch.no_grad():
         proj = project_gaussians(means, torch.exp(log_scales), quats, cam)
@@ -131,7 +132,7 @@ def records_for(cam: Camera, params):
             (means * means).sum(-1, keepdim=True), 1e-16))
         rgb = sh_to_rgb_clamped(3, sh, dirs)
         rgbz = torch.cat([rgb, proj.depth[:, None]], dim=1)
-        cfg = raster_config(cam)
+        cfg = raster_config(cam, grad_sum=grad_sum)
         feat, rect, bins = instance_records(proj, rgbz, opac, cfg)
     return cfg, feat, rect, bins, means.shape[0]
 

@@ -26,16 +26,28 @@ slots come last. ``gaussian_grad_sum`` adds each run front to back from 0
 a fixed order, so training is reproducible from run to run on the card
 (``index_add_``'s float atomics were not).
 
+``RasterConfig.grad_sum = "prefix"`` takes the JAX package's default
+reduction instead (``fast_binning=True``, ``raster_pallas.py:737-756``):
+the layout then carries each slot's pre-slot index (``pre_rank``: its
+place in the depth-major expansion) and each Gaussian's run of pre-slots
+(``seg_lo`` / ``seg_hi``, ``ops/binning.py``). K2 writes slot s's row at
+``pre_rank[s]``, and ``gaussian_grad_prefix`` forms each Gaussian's sum as
+``csum[seg_hi] - csum[seg_lo]`` of one f32 prefix sum over all rows, in
+the association order of ``jnp.cumsum`` on XLA's CPU backend
+(``blocked_scan_plain``), so it equals the JAX reduction bit for bit on
+the same rows.
+
 On a CUDA tensor ``composite_fwd`` / ``composite_bwd`` /
-``gaussian_grad_sum`` launch the kernels in ``csrc/`` (built with nvcc on
-first use into ``_build/``, bound with ctypes) and count the launch in
-``LAUNCHES``; on a CPU tensor they run the plain versions. There is no
-fallback between the two.
+``gaussian_grad_sum`` / ``gaussian_grad_prefix`` launch the kernels in
+``csrc/`` (built with nvcc on first use into ``_build/``, bound with
+ctypes) and count the launch in ``LAUNCHES``; on a CPU tensor they run the
+plain versions. There is no fallback between the two.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -57,7 +69,8 @@ BIN = 32           # the kernels' bin tile side
 NPIX = BIN * BIN
 
 # Kernel launches since the last reset, counted where each kernel launches.
-LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "gaussian_grad_sum": 0}
+LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "gaussian_grad_sum": 0,
+            "gaussian_grad_prefix": 0}
 # Binner runs since the last reset, counted where the binner runs
 # (``_bin_state``): a render that reuses a carried layout does not count.
 BINS = {"build_tile_bins": 0}
@@ -72,10 +85,23 @@ def reset_bins() -> None:
     BINS["build_tile_bins"] = 0
 
 
+# The backward's per-Gaussian reductions (``RasterConfig.grad_sum``).
+GRAD_SUMS = ("direct", "prefix")
+
+
 class RasterConfig(NamedTuple):
+    """``grad_sum`` picks the backward's per-Gaussian reduction of the
+    instance gradients: "direct" adds each Gaussian's own rows front to
+    back (``gaussian_grad_sum``; the counterpart of the JAX
+    ``fast_binning=False`` backward), "prefix" takes differences of one
+    prefix sum over all rows in depth-major order
+    (``gaussian_grad_prefix``): the JAX default, ``fast_binning=True``
+    (``freesurgs_tpu/ops/raster_pallas.py:72``, its reduction at
+    ``:737-756``)."""
     height: int
     width: int
     max_instances: int      # cap on the instance buffer (see ops/binning.py)
+    grad_sum: str = "direct"
 
     bin_scale = BIN // TILE
 
@@ -353,6 +379,62 @@ def gaussian_grad_sum_plain(dsum: torch.Tensor, start: torch.Tensor,
     return out
 
 
+# Block length of the prefix sum's association order (below).
+SCAN_BASE = 16
+
+
+def _sequential_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan along dim 1 of (B, L, C), one f32 add at a time from
+    +0 (``torch.cumsum`` on the CPU accumulates in double)."""
+    out = torch.empty_like(x)
+    acc = torch.zeros_like(x[:, 0])
+    for j in range(x.shape[1]):
+        acc = acc + x[:, j]
+        out[:, j] = acc
+    return out
+
+
+def blocked_scan_plain(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 scan of x (L, C) along dim 0 in the association order
+    of ``jnp.cumsum`` on XLA's CPU backend (its reduce-window rewrite with
+    base length 16), bit for bit: zero-pad to a multiple of 16 rows, scan
+    each block of 16 sequentially from +0, scan the blocks' totals (each
+    block's last row) by the same rule, and add to each block the scan of
+    the totals before it (+0 to the first), one f32 add. At most 16 rows
+    are one sequential scan, with nothing added."""
+    n_rows, c = x.shape
+    if n_rows <= SCAN_BASE:
+        return _sequential_scan(x[None])[0]
+    nb = -(-n_rows // SCAN_BASE)
+    xp = torch.cat([x, x.new_zeros(nb * SCAN_BASE - n_rows, c)])
+    within = _sequential_scan(xp.view(nb, SCAN_BASE, c))
+    upper = blocked_scan_plain(within[:, -1])
+    before = torch.cat([upper.new_zeros(1, c), upper[:-1]])
+    return (within + before[:, None]).view(nb * SCAN_BASE, c)[:n_rows]
+
+
+def scan_levels(m: int) -> list[int]:
+    """Row counts of the prefix sum's upper levels over m rows: the block
+    totals of each level until one has at most 16 rows (824,341 rows:
+    51,522, 3,221, 202, 13)."""
+    levels = []
+    while m > SCAN_BASE:
+        m = -(-m // SCAN_BASE)
+        levels.append(m)
+    return levels
+
+
+def gaussian_grad_prefix_plain(pre: torch.Tensor, seg_lo: torch.Tensor,
+                               seg_hi: torch.Tensor) -> torch.Tensor:
+    """Plain prefix reduction: (n, 10), row g ``csum[seg_hi[g]] -
+    csum[seg_lo[g]]`` with csum the zero-prefixed ``blocked_scan_plain`` of
+    the pre-slot-ordered rows ``pre`` (M, 10): the JAX ``fast_binning``
+    backward's ``dsrc`` on the same rows, bit for bit."""
+    csum = torch.cat([pre.new_zeros(1, pre.shape[1]),
+                      blocked_scan_plain(pre)])
+    return csum[seg_hi.long()] - csum[seg_lo.long()]
+
+
 def composite_pair_counts(feat: torch.Tensor, rect: torch.Tensor,
                           starts: torch.Tensor, counts: torch.Tensor,
                           grid_x: int, *, stop: bool = True,
@@ -393,7 +475,8 @@ BUILD_DIR = _PKG / "_build"
 KERNEL_SOURCES = {"composite_fwd": "composite_fwd.cu",
                   "composite_bwd": "composite_bwd.cu",
                   "composite_fwd_ablate": "composite_fwd_ablate.cu",
-                  "gaussian_grad_sum": "gaussian_grad_sum.cu"}
+                  "gaussian_grad_sum": "gaussian_grad_sum.cu",
+                  "gaussian_grad_prefix": "gaussian_grad_prefix.cu"}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict = {}          # symbol -> bound ctypes function
 
@@ -537,7 +620,8 @@ def composite_bwd(feat: torch.Tensor, rect: torch.Tensor,
                   sum_rank: torch.Tensor, grid_x: int,
                   grid_y: int) -> torch.Tensor:
     """Backward compositing: dsum (M, 10), slot s's gradients in row
-    sum_rank[s] (int32, ``binning.sum_layout``)."""
+    sum_rank[s] (int32, a permutation of the slots: ``binning.sum_layout``,
+    or the layout's ``pre_rank`` for the prefix reduction)."""
     if not feat.is_cuda:
         return composite_bwd_plain(feat, rect, starts, counts, gout,
                                    sum_rank, grid_x, grid_y)
@@ -597,6 +681,40 @@ def gaussian_grad_sum(dsum: torch.Tensor, start: torch.Tensor,
     return out
 
 
+def gaussian_grad_prefix(pre: torch.Tensor, seg_lo: torch.Tensor,
+                         seg_hi: torch.Tensor) -> torch.Tensor:
+    """Per-Gaussian sum as a difference of prefix sums, the JAX
+    ``fast_binning`` backward's: (n, 10) from the pre-slot-ordered rows
+    ``pre`` (M, 10) and each Gaussian's run [seg_lo, seg_hi) (int32,
+    ``binning.build_tile_bins(pre_slots=True)``), bit for bit
+    ``gaussian_grad_prefix_plain``."""
+    if not pre.is_cuda:
+        return gaussian_grad_prefix_plain(pre, seg_lo, seg_hi)
+    dev = pre.device
+    m = pre.shape[0]
+    n = seg_lo.shape[0]
+    _check(pre, "pre", torch.float32, (m, N_FIELD), dev)
+    _check(seg_lo, "seg_lo", torch.int32, (n,), dev)
+    _check(seg_hi, "seg_hi", torch.int32, (n,), dev)
+    if m >= 2 ** 31 // N_FIELD:
+        raise ValueError(f"instance buffer too large for int32 offsets: {m}")
+    # the upper levels' totals, then their scans in place
+    scratch = torch.empty(max(sum(scan_levels(m)), 1) * N_FIELD,
+                          dtype=torch.float32, device=dev)
+    out = torch.empty(n, N_FIELD, dtype=torch.float32, device=dev)
+    fn = kernel_fn("gaussian_grad_prefix", "gaussian_grad_prefix", 5,
+                   n_int=2)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(pre.data_ptr(), seg_lo.data_ptr(), seg_hi.data_ptr(),
+                 scratch.data_ptr(), out.data_ptr(), m, n, stream)
+    if err != 0:
+        raise RuntimeError(f"gaussian_grad_prefix launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["gaussian_grad_prefix"] += 1
+    return out
+
+
 # ------------------------------------------------------------- autograd
 
 class Composite(torch.autograd.Function):
@@ -605,44 +723,43 @@ class Composite(torch.autograd.Function):
     and integer rects carry no gradient, as in the CUDA sort stage.
 
     Returns the (8, Hp, Wp) output; channels 0-6 are differentiable
-    (T_final's cotangent is the g_T of the backward kernel). ``grad_sum``
-    (dsum, sum_start) -> (n, 10) is the per-Gaussian sum after K2
-    (``gaussian_grad_sum`` when None)."""
+    (T_final's cotangent is the g_T of the backward kernel). K2 writes slot
+    s's gradients to row ``row_rank[s]``; ``reduce`` maps those (M, 10) rows
+    to the (n, 10) per-Gaussian sums (``rasterize`` picks both from
+    ``RasterConfig.grad_sum``)."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, rgbz, opacity, rect16, gather_idx,
-                tile_start, tile_count, sum_rank, sum_start, grid_x,
-                grid_y, grad_sum):
+                tile_start, tile_count, row_rank, grid_x, grid_y, reduce):
         feat, rect = _records(mean2d, conic, rgbz, opacity, rect16,
                               gather_idx)
         out, keff = composite_fwd(feat, rect, tile_start, tile_count,
                                   grid_x, grid_y)
         ctx.save_for_backward(feat, rect, tile_start, tile_count, keff, out,
-                              sum_rank, sum_start)
+                              row_rank)
         ctx.grid = (grid_x, grid_y)
-        ctx.grad_sum = grad_sum or gaussian_grad_sum
+        ctx.reduce = reduce
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        (feat, rect, starts, counts, keff, out, sum_rank,
-         sum_start) = ctx.saved_tensors
+        feat, rect, starts, counts, keff, out, row_rank = ctx.saved_tensors
         gx, gy = ctx.grid
         dsum = composite_bwd(feat, rect, starts, counts, keff, out,
-                             gout.contiguous(), sum_rank, gx, gy)
-        # per-Gaussian sum in a fixed order; padding rows are in no run
-        dsrc = ctx.grad_sum(dsum, sum_start)
+                             gout.contiguous(), row_rank, gx, gy)
+        # per-Gaussian sums in a fixed order; padding rows add nothing
+        dsrc = ctx.reduce(dsum)
         return (dsrc[:, 0:2], dsrc[:, 2:5], dsrc[:, 6:10], dsrc[:, 5],
-                None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 # ------------------------------------------------------ the layout carry
 #
 # A binning layout (``TileBins``: gather_idx, tile_start, tile_count,
-# num_instances, overflow, and the sum layout sum_order / sum_start /
-# sum_rank) is the port's counterpart of the JAX ``BinState``
-# (``raster_pallas.py:639-670``) without the fast binner's fields, which
-# the port does not have. Carried across optimizer steps it
+# num_instances, overflow, the sum layout sum_order / sum_start / sum_rank,
+# and under grad_sum="prefix" the fast binner's pre_rank / seg_lo / seg_hi)
+# is the port's counterpart of the JAX ``BinState``
+# (``raster_pallas.py:639-685``). Carried across optimizer steps it
 # skips the binner, and its two host reads, under the JAX contract:
 #
 # - every call prunes and snugs the CURRENT parameters and regathers the
@@ -672,7 +789,8 @@ def _bin_state(proj_b: ProjectedGaussians, cfg: RasterConfig) -> TileBins:
     """Bin pruned + snugged projections at the bin granularity."""
     with torch.no_grad():
         bins = build_tile_bins(derive_bin_rect(proj_b, cfg.bin_scale),
-                               cfg.grid_x, cfg.grid_y, cfg.max_instances)
+                               cfg.grid_x, cfg.grid_y, cfg.max_instances,
+                               pre_slots=cfg.grad_sum == "prefix")
     BINS["build_tile_bins"] += 1
     return bins
 
@@ -709,16 +827,38 @@ def instance_records(proj: ProjectedGaussians, rgbz: torch.Tensor,
     return feat, rect, bins
 
 
+def _reduction(cfg: RasterConfig, bins: TileBins, band_sum):
+    """K2's row map and the per-Gaussian reduction ``cfg.grad_sum`` names,
+    on this layout."""
+    if cfg.grad_sum == "direct":
+        return bins.sum_rank, functools.partial(
+            band_sum or gaussian_grad_sum, start=bins.sum_start)
+    if cfg.grad_sum != "prefix":
+        raise ValueError(f"grad_sum={cfg.grad_sum!r}: one of {GRAD_SUMS}")
+    if band_sum is not None:
+        raise NotImplementedError(
+            "grad_sum='prefix' on a band of a sharded render: the bands' "
+            "prefix reductions and their sum are not ported (ROADMAP "
+            "Queue 1)")
+    if bins.pre_rank is None:
+        raise ValueError("grad_sum='prefix' needs a layout binned with it "
+                         "(pre_rank / seg_lo / seg_hi); this one was "
+                         "binned for grad_sum='direct'")
+    return bins.pre_rank, functools.partial(
+        gaussian_grad_prefix, seg_lo=bins.seg_lo, seg_hi=bins.seg_hi)
+
+
 def rasterize(proj: ProjectedGaussians, rgbz: torch.Tensor,
               opacity: torch.Tensor, cfg: RasterConfig,
-              bins: TileBins | None = None, grad_sum=None):
+              bins: TileBins | None = None, band_sum=None):
     """Rasterize projected Gaussians through the compositing kernels.
 
     rgbz: (N, 4) per-Gaussian [r, g, b, z]; opacity: (N,) in [0, 1].
     bins: a carried layout to reuse (see the layout carry above); None
-    bins fresh. grad_sum: the backward's per-Gaussian sum
-    (``Composite``; a band of a sharded render continues the bands above
-    it, ``parallel/sharded.py``).
+    bins fresh. ``cfg.grad_sum`` picks the backward's per-Gaussian
+    reduction (``RasterConfig``); a "prefix" carry must have been binned
+    with it. band_sum: the "direct" reduction of a band of a sharded
+    render, which continues the bands above it (``parallel/sharded.py``).
     Returns {"image": (6, H, W) [r, g, b, z, sil, z^2] without background,
     "final_T": (H, W), "overflow": () instances dropped at the cap (on a
     carried layout: ``_reuse_overflow``), "num_instances": () instances in
@@ -730,10 +870,11 @@ def rasterize(proj: ProjectedGaussians, rgbz: torch.Tensor,
         overflow = bins.overflow
     else:
         overflow = _reuse_overflow(proj_b, cfg)
+    row_rank, reduce = _reduction(cfg, bins, band_sum)
     out = Composite.apply(proj_b.mean2d, proj_b.conic, rgbz, opacity,
                           proj_b.tile_rect, bins.gather_idx, bins.tile_start,
-                          bins.tile_count, bins.sum_rank, bins.sum_start,
-                          cfg.grid_x, cfg.grid_y, grad_sum)
+                          bins.tile_count, row_rank, cfg.grid_x, cfg.grid_y,
+                          reduce)
     out = out[:, :cfg.height, :cfg.width]
     return {"image": out[0:6], "final_T": out[6], "overflow": overflow,
             "num_instances": bins.num_instances, "bins": bins}

@@ -34,9 +34,11 @@ from .raster_cuda import RasterConfig, instance_records, rasterize
 DEFAULT_MAX_INSTANCES = 3_145_728
 
 
-def raster_config(cam: Camera, max_instances: int = 0) -> RasterConfig:
+def raster_config(cam: Camera, max_instances: int = 0,
+                  grad_sum: str = "direct") -> RasterConfig:
     return RasterConfig(height=cam.height, width=cam.width,
-                        max_instances=max_instances or DEFAULT_MAX_INSTANCES)
+                        max_instances=max_instances or DEFAULT_MAX_INSTANCES,
+                        grad_sum=grad_sum)
 
 
 def _raster_inputs(means_w, quats, log_scales, logit_opacity, sh_coeffs,
@@ -59,7 +61,7 @@ def _raster_inputs(means_w, quats, log_scales, logit_opacity, sh_coeffs,
 
 def render_records(means3d, quats, log_scales, logit_opacity, sh_coeffs,
                    w2c, cam: Camera, *, active=None, sh_degree: int = 0,
-                   max_instances: int = 0):
+                   max_instances: int = 0, grad_sum: str = "direct"):
     """The binned records ``render`` would hand the compositing kernels for
     this view, without autograd: (RasterConfig, feat (10, M), rect (M,),
     TileBins). For checking and timing the kernels on a real layout."""
@@ -67,7 +69,7 @@ def render_records(means3d, quats, log_scales, logit_opacity, sh_coeffs,
         proj, rgbz, opacity = _raster_inputs(
             means3d, quats, log_scales, logit_opacity, sh_coeffs, w2c, cam,
             active, None, sh_degree)
-        cfg = raster_config(cam, max_instances)
+        cfg = raster_config(cam, max_instances, grad_sum)
         return (cfg,) + instance_records(proj, rgbz, opacity, cfg)
 
 
@@ -82,7 +84,8 @@ def render(means3d: torch.Tensor, quats: torch.Tensor,
            gs_grad: bool = True,
            cam_grad: bool = True,
            bins: TileBins | None = None,
-           rebin: bool | None = None) -> dict[str, Any]:
+           rebin: bool | None = None,
+           grad_sum: str = "direct") -> dict[str, Any]:
     """Render a view of the Gaussian field.
 
     means3d (N, 3), quats (N, 4) unnormalized (w, x, y, z), log_scales
@@ -95,7 +98,8 @@ def render(means3d: torch.Tensor, quats: torch.Tensor,
     may be None, the start of a carry); False reuses ``bins``. With a
     carry the result holds "bins", the layout used, for the caller to
     carry on (JAX ``render(bins=, rebin=)``, with a host bool for the
-    traced one).
+    traced one). grad_sum: the backward's per-Gaussian reduction,
+    "direct" or "prefix" (the JAX default's; ``raster_cuda.RasterConfig``).
 
     Returns render (3, H, W), render_dep, render_sil, presence_mask,
     uncertainty, final_T, render_w2c, radii, visibility, overflow
@@ -118,7 +122,8 @@ def render(means3d: torch.Tensor, quats: torch.Tensor,
         gs(sh_coeffs), w2c_used, cam, active, probe2d, sh_degree)
     bg6 = torch.cat([bg, torch.ones(3, dtype=bg.dtype, device=bg.device)])
 
-    out = rasterize(proj, rgbz, opacity, raster_config(cam, max_instances),
+    out = rasterize(proj, rgbz, opacity,
+                    raster_config(cam, max_instances, grad_sum),
                     bins=None if rebin else bins)
     final_T = out["final_T"]
     image6 = out["image"] + final_T[None] * bg6[:, None, None]

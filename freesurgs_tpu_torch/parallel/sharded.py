@@ -100,7 +100,7 @@ def _clip_to_band(b: int, band_h: int, grid_ty_band: int, mean2d, rect,
 
 def _band_sum(group):
     """The backward's per-Gaussian sum for this rank's band of ``group``
-    (``Composite``'s ``grad_sum``): the bands above it continued, then the
+    (``rasterize``'s ``band_sum``): the bands above it continued, then the
     last band's sums broadcast, so every rank returns the whole image's
     sums."""
     r, n = dist.get_rank(group), dist.get_world_size(group)
@@ -234,7 +234,8 @@ def render_sharded_full(mesh: Mesh, means3d, quats, log_scales,
                         active=None, probe2d=None, sh_degree: int = 0,
                         max_instances: int = 0, bg=None,
                         gs_grad: bool = True, cam_grad: bool = True,
-                        shard_projection: bool | str = "auto"):
+                        shard_projection: bool | str = "auto",
+                        grad_sum: str = "direct"):
     """Band-sharded render with the contract of ``ops/render.render``.
 
     Every rank of ``mesh``'s tiles group calls this with the same
@@ -247,8 +248,15 @@ def render_sharded_full(mesh: Mesh, means3d, quats, log_scales,
     per-Gaussian stage when N >= SHARD_PROJECTION_MIN_N on more than one
     band. Differentiable in the Gaussians (unless ``gs_grad`` is False),
     the pose (unless ``cam_grad`` is False) and ``probe2d``; rows past
-    cam.height (the bands' padding) are cropped.
+    cam.height (the bands' padding) are cropped. The backward reduction is
+    the chained "direct" sum (``_band_sum``): ``grad_sum="prefix"`` (JAX's
+    per-band fast-binner reduction and psum) is not ported and raises.
     """
+    if grad_sum != "direct":
+        raise NotImplementedError(
+            f"grad_sum={grad_sum!r} under a mesh: the band-sharded prefix "
+            "reduction is not ported (ROADMAP Queue 1); bands chain the "
+            "direct sum")
     n = means3d.shape[0]
     n_shards = mesh.shape[TILE_AXIS]
     group = mesh.tiles_group
@@ -294,7 +302,7 @@ def render_sharded_full(mesh: Mesh, means3d, quats, log_scales,
     out = rasterize(bproj, rgbz, x[:, 5],
                     RasterConfig(height=band_h, width=pcam.width,
                                  max_instances=cap),
-                    grad_sum=None if group is None else _band_sum(group))
+                    band_sum=None if group is None else _band_sum(group))
     band = torch.cat([out["image"] + out["final_T"][None]
                       * bg6[:, None, None], out["final_T"][None]])
     if group is None:

@@ -453,7 +453,7 @@ class Trainer:
             self.field, self.poses.quats, self.poses.trans, self.colors, ts,
             self.cam, iters=self.pose_ba_iters, lr=self.pose_ba_lr,
             sh_degree=self.active_sh_degree,
-            max_instances=self.cfg.instance_cap)
+            max_instances=self.cfg.instance_cap, grad_sum=self.cfg.grad_sum)
         self.poses = PoseTable(quats=quats, trans=trans)
         mean_loss = float(best.mean())       # host read: the pass is done
         seconds = time.time() - t0

@@ -26,6 +26,7 @@ import torch
 from ..core.camera import Camera
 from ..core.transforms import build_w2c
 from ..models.gaussians import PARAM_NAMES, GaussianField
+from ..ops.raster_cuda import GRAD_SUMS
 from ..ops.render import DEFAULT_MAX_INSTANCES, render
 from ..parallel.sharded import render_sharded_full
 from . import losses
@@ -71,6 +72,11 @@ class TrainConfig(NamedTuple):
     # the buffer exactly on every call below the cap.
     max_instances: int = 0
     max_instances_cap: int = DEFAULT_MAX_INSTANCES
+    # The backward's per-Gaussian reduction in every training render
+    # (tracking, mapping, pose BA): "direct", or "prefix", the JAX
+    # package's default (fast_binning=True; ops/raster_cuda.RasterConfig).
+    # Not in the JAX TrainConfig, whose renders always take the default.
+    grad_sum: str = "direct"
     # Kept for field parity with the JAX package; the port renders through
     # its compositing kernels only (check_supported).
     impl: str | None = None
@@ -103,6 +109,8 @@ def check_supported(cfg: TrainConfig) -> None:
             f"impl={cfg.impl!r}: the port renders only through its "
             "compositing kernels (impl=None or 'raster'); the dense oracle "
             "is a test reference (ops/oracle.py)")
+    if cfg.grad_sum not in GRAD_SUMS:
+        raise ValueError(f"grad_sum={cfg.grad_sum!r}: one of {GRAD_SUMS}")
     if cfg.keyframe_policy not in ("uniform", "overlap"):
         raise ValueError(f"keyframe_policy={cfg.keyframe_policy!r}: "
                          "'uniform' or 'overlap'")
@@ -169,7 +177,7 @@ def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
                       sh_degree=sh_degree, max_instances=cfg.instance_cap,
                       gs_grad=False, cam_grad=True, bins=bins,
                       rebin=(i % cfg.rebin_tracking_every == 0) if carry
-                      else None)
+                      else None, grad_sum=cfg.grad_sum)
         bins = out.get("bins")
         overflow_max = torch.maximum(overflow_max,
                                      out["overflow"].to(torch.float32))
@@ -308,7 +316,8 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
                           w2c_all[t_idx], cam, active=field.active,
                           probe2d=probe_t, sh_degree=sh_degree,
                           max_instances=cfg.instance_cap, gs_grad=True,
-                          cam_grad=False, bins=bins_c, rebin=rebin)
+                          cam_grad=False, bins=bins_c, rebin=rebin,
+                          grad_sum=cfg.grad_sum)
             rgb = cfg.w_rgb_mapping * losses.rgb_loss(out["render"],
                                                       colors_all[t_idx])
             mono = monodeps_all[t_idx]

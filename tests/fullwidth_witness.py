@@ -4,6 +4,7 @@ from one shared state, on the full-res recipe at 1280x1024 on the CPU.
 
     python tests/fullwidth_witness.py --work <dir> [--steps 1,2,3,4,5,6]
         [--map_iters 10] [--track_iters 4] [--threads 4]
+        [--port_grad_sum direct|prefix]
         [--out results/fullwidth_witness.json]
 
 The recipe's first 3 frames are made once by the port's
@@ -46,7 +47,10 @@ package's state, carried into the port by ``freesurgs_tpu_torch.convert``:
 Steps 3-5 also run the JAX side on its sort binner (``fast_binning``
 off: each Gaussian's gradients summed by scatter-adds, not as a
 difference of prefix sums over all instances), the JAX package against
-itself under another per-Gaussian sum. Cuts (iteration counts only,
+itself under another per-Gaussian sum. ``--port_grad_sum prefix`` runs
+the port with the JAX default's reduction (``TrainConfig.grad_sum``, every
+render of steps 3-5), so its "port" columns read the port on the TPU
+path's arithmetic. Cuts (iteration counts only,
 never the width) are listed in the output.
 Writes ``--out`` (each step's gate, worst error, counts and seconds) and
 ``<work>/witness_detail.json``; exits 1 if a step is beyond its gate.
@@ -88,6 +92,9 @@ def parse(argv=None):
     ap.add_argument("--map_iters", type=int, default=10)
     ap.add_argument("--track_iters", type=int, default=4)
     ap.add_argument("--threads", type=int, default=4)
+    ap.add_argument("--port_grad_sum", default="direct",
+                    choices=("direct", "prefix"),
+                    help="the port's backward per-Gaussian reduction")
     ap.add_argument("--hw", type=int, nargs=2, default=list(HW),
                     help="height width; only a debugging run cuts it")
     ap.add_argument("--out", default=str(REPO / "results"
@@ -181,7 +188,9 @@ class Witness:
         t0 = time.time()
         self.jt = JTrainer(jseq, JConfig(**CFG), global_chunk=250,
                            log_fn=self.log)
-        self.tt = TTrainer(tseq, TConfig(**CFG), global_chunk=250,
+        self.tt = TTrainer(tseq, TConfig(**CFG,
+                                         grad_sum=args.port_grad_sum),
+                           global_chunk=250,
                            log_fn=self.log, device="cpu")
         self.init_s = time.time() - t0
         self.cam_j, self.cam_t = self.jt.cam, self.tt.cam
@@ -452,7 +461,8 @@ class Witness:
         to = trender(*ts_[:5], torch.from_numpy(w2c), self.cam_t,
                      active=torch.from_numpy(np.asarray(act)),
                      probe2d=ts_[5], sh_degree=0,
-                     max_instances=self.tt.cfg.instance_cap)
+                     max_instances=self.tt.cfg.instance_cap,
+                     grad_sum=self.tt.cfg.grad_sum)
         gt_t = torch.from_numpy(np.asarray(gt))
         mono_t = torch.from_numpy(np.asarray(mono))
         tcfg = self.tt.cfg
@@ -1034,6 +1044,7 @@ class Witness:
                "recipe_gaussians": 20000, "settings": CFG,
                "jax_impl": "pallas_interpret (CPU)",
                "port": "plain kernel versions (CPU)",
+               "port_grad_sum": self.args.port_grad_sum,
                "threads": self.args.threads, "cuts": self.cuts,
                "jax_max_instances": int(self.jt.cfg.max_instances),
                "steps": {}}
