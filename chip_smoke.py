@@ -34,7 +34,13 @@ Phases, each printing one JSON line with its seconds:
      rows bitwise equal over launches and bitwise its plain version,
      within PREFIX_VS_DIRECT_TOL of the direct sum of the same rows (the
      difference printed); its device time (CUDA graph), stream time,
-     plain time, and ``torch.cumsum`` + the two lookups as the library's;
+     plain time, ``torch.cumsum`` + the two lookups as the library's, and
+     each of its kernels' launches a call and device time (torch.profiler;
+     launches a call, the most of three one-call profiles, at most
+     PREFIX_MAX_LAUNCHES); then layout "synthetic": the
+     kernel on random rows at every PREFIX_LENGTHS count (0 to 5 levels,
+     every block edge), runs with empty and one-row runs, two launches
+     bitwise equal and bitwise its plain version, launches a call;
   6. ablate  — K3, the ablation family of today's K1 (ops/raster_ablate.py,
      one Hopper mechanism switched off a variant): the timing run over
      every variant on the bench scene, its launch counts read just after;
@@ -134,8 +140,15 @@ Phases, each printing one JSON line with its seconds:
      equal, within the Trainer gate of a Trainer without a mesh, frame 0
      fitted; (c) ``multiseq_mapping_chunk`` on two sequences, one per rank,
      each bitwise its single-process run; (d) ms per sharded fwd+bwd per
-     rank beside the single-process render. Launch counters reset on every
-     rank just before (a) and read just after (c), before the references;
+     rank beside the single-process render; (e) grad_sum="prefix" on the
+     bands (each band's prefix reduction, the sums all-reduced): (a)'s
+     renders against the single-process "prefix" render (channels at the
+     kernel gates, gradients within PREFIX_VS_DIRECT_TOL normalized: each
+     band's prefix sum rounds otherwise), its launches = the bands'
+     backwards, and a Trainer(mesh=) progressive stage raising frame 0's
+     PSNR; the ranks bitwise equal throughout. Launch counters reset on
+     every rank just before (a) and read just after (c), before the
+     references;
  17. kernels — the launches by path, then one JSON line with every
      kernel's numbers (K1 / K2 / the sum / the prefix reduction from the
      slice_frame0 layout,
@@ -215,6 +228,11 @@ GN_MIN_WEIGHT = 64.0        # flow_pnp_refine's degenerate-frame guard
 # parity's 5e-5, so this gate only catches a reduction of the wrong rows.
 PREFIX_VS_DIRECT_TOL = 1e-2
 PREFIX_GLOBAL = 10          # global iterations of the prefix Trainer run
+# Synthetic row counts for the prefix kernel: 0 to 5 levels above the rows
+# and every edge of its blocks of 16, its 256-row CTAs and its 4,096-row
+# level-2 blocks; past ~1.2 million rows its third launch.
+PREFIX_LENGTHS = (1, 15, 16, 17, 4095, 4096, 4097, 65537, 1048577, 1300000)
+PREFIX_MAX_LAUNCHES = 3
 
 # What each kernel of the training path replaces: K1, K2, the per-Gaussian
 # sum after K2 (_composite_bwd's reduction with fast_binning=False) and,
@@ -492,6 +510,84 @@ def kernel_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
     return rows
 
 
+def kernel_profile(fn, calls: int = 1) -> dict:
+    """{kernel name: [launches a call, device us a launch]} of ``calls``
+    calls of ``fn``, from torch.profiler's device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {re.sub(r"^\(anonymous namespace\)::", "", ev.key).split("(")[0]:
+            [ev.count / calls, ev.self_device_time_total / ev.count]
+            for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
+
+
+def launches_per_call(fn, tries: int = 3) -> int:
+    """Kernel launches in one call of ``fn``: the most any of ``tries``
+    one-call profiles shows (a profile can drop a call's events, never add
+    one)."""
+    return max(round(sum(c for c, _ in kernel_profile(fn).values()))
+               for _ in range(tries))
+
+
+def prefix_synthetic(dev) -> None:
+    """The prefix kernel on synthetic rows at every PREFIX_LENGTHS count
+    (f32 over ~8 decades, both signs), the runs a shuffled random tiling
+    with empty and one-row runs: two launches bitwise equal and bitwise
+    the plain version, its launches a call (torch.profiler) at most
+    PREFIX_MAX_LAUNCHES. Prints ``prefix_parity`` with layout
+    "synthetic"."""
+    import numpy as np
+    import torch
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+
+    t0 = time.time()
+    cases, fails = [], []
+    for m in PREFIX_LENGTHS:
+        rng = np.random.default_rng(m)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(m)
+        pre = torch.randn(m, rc.N_FIELD, generator=gen, device=dev) \
+            * torch.exp(3.0 * torch.randn(m, 1, generator=gen, device=dev))
+        one = rng.integers(0, m, 2)
+        cuts = np.sort(np.concatenate([
+            rng.integers(0, m + 1, max(8, m // 3)), [0, 0, m, m], one,
+            one + 1]))
+        order = rng.permutation(len(cuts) - 1)
+        lo = torch.tensor(cuts[:-1][order], dtype=torch.int32, device=dev)
+        hi = torch.tensor(cuts[1:][order], dtype=torch.int32, device=dev)
+        a = rc.gaussian_grad_prefix(pre, lo, hi)
+        b = rc.gaussian_grad_prefix(pre, lo, hi)
+        plain = rc.gaussian_grad_prefix_plain(pre, lo, hi)
+        torch.cuda.synchronize()
+        prof = kernel_profile(lambda: rc.gaussian_grad_prefix(pre, lo, hi))
+        launches = launches_per_call(
+            lambda: rc.gaussian_grad_prefix(pre, lo, hi))
+        case = {"m": m, "gaussians": int(lo.shape[0]),
+                "levels": rc.scan_levels(m),
+                "empty_runs": int((lo == hi).sum()),
+                "bitwise_repeat": torch.equal(a, b),
+                "bitwise_plain": torch.equal(a, plain),
+                "max_abs_err": float((a - plain).abs().max()),
+                "launches_per_call": launches, "kernels": sorted(prof)}
+        cases.append(case)
+        if not (case["bitwise_repeat"] and case["bitwise_plain"]):
+            fails.append(f"M={m}: bitwise repeat {case['bitwise_repeat']}, "
+                         f"plain {case['bitwise_plain']}")
+        if not 1 <= launches <= PREFIX_MAX_LAUNCHES:
+            fails.append(f"M={m}: {launches} launches a call")
+        del pre, a, b, plain
+    phase("prefix_parity", t0, layout="synthetic", cases=cases,
+          tolerances={"vs_plain": "bitwise equal", "repeat": "bitwise equal",
+                      "launches_per_call": PREFIX_MAX_LAUNCHES})
+    check(not fails, "prefix synthetic: " + "; ".join(fails))
+
+
 def prefix_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
                   n: int) -> dict:
     """The prefix reduction (``gaussian_grad_prefix``) on one layout binned
@@ -594,6 +690,8 @@ def prefix_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
         return csum[hi_l] - csum[lo_l]
 
     lib_err = float((lib_call() - gk).abs().max())
+    per_kernel = kernel_profile(call, calls=10)
+    launches = launches_per_call(call)
     ms = cuda_graph_ms(call, iters=20)
     ms_stream = cuda_ms(call, iters=20)
     lib_ms = cuda_graph_ms(lib_call, iters=20)
@@ -610,7 +708,10 @@ def prefix_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
           library_note="torch.cumsum over (M, 10) and the two lookups; "
                        "not the JAX order, not bitwise",
           bytes=nbytes, ops=ops, bound_ms=b_ms, bound_by=b_by,
-          share_of_bound=b_ms / ms)
+          share_of_bound=b_ms / ms,
+          per_kernel_launches_and_us=per_kernel, launches_per_call=launches)
+    check(1 <= launches <= PREFIX_MAX_LAUNCHES,
+          f"{layout} prefix: {launches} launches a call ({per_kernel})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": plain_err, "library_ms": lib_ms}
 
@@ -2720,6 +2821,9 @@ def parallel_checks(rank: int, dev) -> dict:
     weights = [torch.randn(shape, generator=gen).to(dev) for shape in
                ((3, cam.height, cam.width), (cam.height, cam.width),
                 (cam.height, cam.width))]
+    # (e)'s Trainer: the JAX default's reduction on the bands
+    cfg_p = TrainConfig(**SLICE_CFG, grad_sum="prefix")
+    tr_p = Trainer(seq, cfg_p, mesh=mesh, log_fn=quiet_log, **tkw)
     # (c)'s states: one per sequence, from a Trainer's init on it
     seq_states = [Trainer(sq, cfg, log_fn=quiet_log, **tkw).state
                   for _, sq in scenes]
@@ -2744,6 +2848,17 @@ def parallel_checks(rank: int, dev) -> dict:
     renders["fwd"] += 2
     renders["bwd"] += 2
     launches_a = dict(rc.LAUNCHES)
+    # (e) the same renders with grad_sum="prefix": each band's prefix
+    # reduction, the bands' sums all-reduced
+    sharded_p = {}
+    for name, sp in (("replicated", False), ("shard_projection", True)):
+        sharded_p[name] = parallel_grads(
+            functools.partial(render_sharded_full, mesh,
+                              shard_projection=sp, grad_sum="prefix"),
+            field0, scene.gt_w2c[0], cam, weights,
+            max_instances=cfg.instance_cap)
+    renders_p = {"fwd": 2, "bwd": 2}
+    launches_e = {k: rc.LAUNCHES[k] - launches_a[k] for k in rc.LAUNCHES}
 
     st0 = dataclasses.replace(
         tr.state, generator=torch.Generator().manual_seed(1),
@@ -2773,6 +2888,13 @@ def parallel_checks(rank: int, dev) -> dict:
     renders["fwd"] += 1 + fwd + PARALLEL_GLOBAL
     renders["bwd"] += bwd + PARALLEL_GLOBAL
 
+    psnr_p_before = psnr(tr_p.render_frame(0)["render"], seq.colors[0])
+    tr_p.progressive_run()
+    psnr_p_after = psnr(tr_p.state.pred_colors[0].float(), seq.colors[0])
+    fwd_p, bwd_p, _ = progressive_counts(cfg_p, seq)
+    renders_p["fwd"] += 1 + fwd_p
+    renders_p["bwd"] += bwd_p
+
     ms_state, ms_aux = multiseq_mapping_chunk(
         mesh_d, shard_states(mesh_d, stack_states(seq_states)),
         colors_all, monodeps_all, w2c_all,
@@ -2788,8 +2910,15 @@ def parallel_checks(rank: int, dev) -> dict:
     res = {"rank": rank, "setup_seconds": setup_s, "run_seconds": run_s,
            "trainer_seconds": trainer_s, "launches": launches,
            "launches_a": launches_a,
-           "expected_launches": launch_counts(renders["fwd"],
-                                              renders["bwd"]),
+           "expected_launches": {
+               k: v + launch_counts(renders_p["fwd"], renders_p["bwd"],
+                                    prefix=True)[k]
+               for k, v in launch_counts(renders["fwd"],
+                                         renders["bwd"]).items()},
+           "launches_e": launches_e,
+           "prefix_psnr_frame0_before": psnr_p_before,
+           "prefix_psnr_frame0_after_mapping": psnr_p_after,
+           "prefix_active_gaussians": int(tr_p.field.num_active),
            "init_gaussians": int(field0.num_active),
            "map_loss": float(aux["loss"]),
            "map_field_moved": float((st.field.means
@@ -2829,9 +2958,33 @@ def parallel_checks(rank: int, dev) -> dict:
             "band_num_instances": out["band_num_instances"].tolist(),
             "single_num_instances": int(ref[0]["num_instances"])}
 
+    # (e) against the single-process "prefix" render: each band's layout
+    # has a prefix sum of its own, so the gradients part by that rounding
+    ref_p = parallel_grads(render, field0, scene.gt_w2c[0], cam, weights,
+                           max_instances=cfg.instance_cap, grad_sum="prefix")
+    res["e"] = {}
+    for name, (out, grads) in sharded_p.items():
+        chans = [(out["render"][c].detach(), ref_p[0]["render"][c].detach())
+                 for c in range(3)]
+        chans += [(out[k].detach(), ref_p[0][k].detach())
+                  for k in ("render_dep", "render_sil", "final_T")]
+        res["e"][name] = {
+            "channel_max_abs_err": [float((a - b).abs().max())
+                                    for a, b in chans],
+            "channel_scale": [max(1.0, float(b.abs().max()))
+                              for _, b in chans],
+            "grad_normalized_err": {k: grad_error(g, ref_p[1][k])
+                                    for k, g in grads.items()},
+            "grad_normalized_err_vs_direct_bands": {
+                k: grad_error(g, sharded[name][1][k])
+                for k, g in grads.items()},
+            "radii_equal": torch.equal(out["radii"], ref_p[0]["radii"]),
+            "overflow": int(out["overflow"])}
+
     # (b) the ranks' states, and a Trainer without a mesh (rank 0)
     res["ranks_bitwise_equal"] = same_on_all_ranks(
-        state_tensors(tr) + [st.field.means, q1, t1])
+        state_tensors(tr) + [st.field.means, q1, t1] + state_tensors(tr_p)
+        + [g for _, grads in sharded_p.values() for g in grads.values()])
     if rank == 0:
         single = Trainer(seq, cfg, log_fn=quiet_log, **tkw)
         single.progressive_run()
@@ -2913,6 +3066,22 @@ def run_parallel(dev, smi: str) -> dict:
               f"{r['expected_launches']}")
         check(r["launches_a"] == launch_counts(2, 2),
               f"rank {n}: (a) launched {r['launches_a']}")
+        check(r["launches_e"] == launch_counts(2, 2, prefix=True),
+              f"rank {n}: (e) launched {r['launches_e']}")
+        for name, e in r["e"].items():
+            check(all(x <= FWD_CHANNEL_TOL * sc for x, sc in
+                      zip(e["channel_max_abs_err"], e["channel_scale"])),
+                  f"rank {n} (e) {name}: channel errors "
+                  f"{e['channel_max_abs_err']}")
+            check(all(x <= PREFIX_VS_DIRECT_TOL
+                      for x in e["grad_normalized_err"].values()),
+                  f"rank {n} (e) {name}: gradient errors "
+                  f"{e['grad_normalized_err']}")
+            check(e["overflow"] == 0 and e["radii_equal"],
+                  f"rank {n} (e) {name}: overflow or radii")
+        check(r["prefix_psnr_frame0_after_mapping"]
+              > r["prefix_psnr_frame0_before"],
+              f"rank {n}: (e) frame-0 PSNR did not improve")
         for name, a in r["a"].items():
             check(all(e <= FWD_CHANNEL_TOL * s for e, s in
                       zip(a["channel_max_abs_err"], a["channel_scale"])),
@@ -2960,6 +3129,8 @@ def ptxas_report(reports: dict[str, str]) -> dict:
             switches = tuple(b == "1" for b in re.findall(r"Lb([01])E", fn))
             name = (f"composite_fwd_ablate.{by_switches[switches]}"
                     if "ablate" in fn else lib)
+            if lib == "gaussian_grad_prefix":
+                name += "." + re.search(r"\d+([a-z_]+_kernel)E", fn).group(1)
             regs = re.findall(r"Used (\d+) registers", block)
             smem = re.findall(r"(\d+) bytes smem", block)
             spill = re.findall(r"(\d+) bytes spill stores", block)
@@ -3015,6 +3186,7 @@ def main() -> int:
     prefix_checks(dev, "bench_scene", cam.height, cam.width, cfg_p,
                   *records_p)
     del params, records_p
+    prefix_synthetic(dev)
     with tempfile.TemporaryDirectory() as ckpt_root:
         slice_summary = run_slice(dev, results, Path(ckpt_root))
     paths = {"slice": slice_summary["launches"],

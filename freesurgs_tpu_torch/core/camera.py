@@ -20,6 +20,10 @@ def focal2fov(focal: float, pixels: int) -> float:
     return 2.0 * math.atan(pixels / (2.0 * focal))
 
 
+def fov2focal(fov: float, pixels: int) -> float:
+    return pixels / (2.0 * math.tan(fov * 0.5))
+
+
 @dataclasses.dataclass(frozen=True)
 class Camera:
     """Static pinhole camera. ``near_cull`` is the CUDA kernel's hard-coded
@@ -63,6 +67,20 @@ class Camera:
         return cls(height=int(height), width=int(width), fx=float(K[0, 0]),
                    fy=float(K[1, 1]), cx=float(K[0, 2]), cy=float(K[1, 2]),
                    **kw)
+
+
+def opengl_projection_matrix(cam: Camera) -> np.ndarray:
+    """The reference's intrinsics-based OpenGL projection
+    (``scene/pose_optimizer.py:614-617``), for viewer interop; the render
+    path does not use it."""
+    w, h = cam.width, cam.height
+    near, far = cam.znear, cam.zfar
+    return np.array([
+        [2 * cam.fx / w, 0.0, -(w - 2 * cam.cx) / w, 0.0],
+        [0.0, 2 * cam.fy / h, -(h - 2 * cam.cy) / h, 0.0],
+        [0.0, 0.0, far / (far - near), -(far * near) / (far - near)],
+        [0.0, 0.0, 1.0, 0.0],
+    ], dtype=np.float32)
 
 
 def pixel_grid(height: int, width: int, dtype=torch.float32,

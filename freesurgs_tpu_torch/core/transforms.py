@@ -114,3 +114,15 @@ def essential_from_poses(w2c_1: torch.Tensor,
 def fundamental_from_essential(E: torch.Tensor, K1: torch.Tensor,
                                K2: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv(K2).T @ E @ torch.linalg.inv(K1)
+
+
+def euler_degrees_to_rotmat(euler_xyz_deg: torch.Tensor) -> torch.Tensor:
+    """XYZ-intrinsic Euler angles in degrees (3,) -> 3x3 rotation Rz Ry Rx
+    (reference ``utils/geometry_utils.py:92-138``; the viewer path)."""
+    cx, cy, cz = torch.cos(torch.deg2rad(euler_xyz_deg)).unbind()
+    sx, sy, sz = torch.sin(torch.deg2rad(euler_xyz_deg)).unbind()
+    one, zero = torch.ones_like(cx), torch.zeros_like(cx)
+    rx = torch.stack([one, zero, zero, zero, cx, -sx, zero, sx, cx]).view(3, 3)
+    ry = torch.stack([cy, zero, sy, zero, one, zero, -sy, zero, cy]).view(3, 3)
+    rz = torch.stack([cz, -sz, zero, sz, cz, zero, zero, zero, one]).view(3, 3)
+    return rz @ ry @ rx

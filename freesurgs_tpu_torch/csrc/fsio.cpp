@@ -65,7 +65,12 @@ struct Cache {
   std::atomic<bool> stop{false};
 
   ~Cache() {
-    stop.store(true);
+    {
+      // set under the lock: a worker between its predicate check and its
+      // wait would otherwise miss the notify and never return to join
+      std::lock_guard<std::mutex> lk(mu);
+      stop.store(true);
+    }
     cv.notify_all();
     for (auto& w : workers) {
       if (w.joinable()) w.join();

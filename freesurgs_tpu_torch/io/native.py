@@ -95,6 +95,16 @@ def _lib():
     return lib
 
 
+def available() -> bool:
+    """Whether the native library builds and loads here: a probe only; no
+    path of the port falls back when it does not (each raises)."""
+    try:
+        _lib()
+        return True
+    except Exception:
+        return False
+
+
 # ------------------------------------------------------------ PNG un-filter
 
 def png_unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:

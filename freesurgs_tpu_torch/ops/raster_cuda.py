@@ -35,7 +35,9 @@ place in the depth-major expansion) and each Gaussian's run of pre-slots
 ``csum[seg_hi] - csum[seg_lo]`` of one f32 prefix sum over all rows, in
 the association order of ``jnp.cumsum`` on XLA's CPU backend
 (``blocked_scan_plain``), so it equals the JAX reduction bit for bit on
-the same rows.
+the same rows. Kernel and plain version alike rebuild each csum value
+top-down from the levels' block scans (``block_scans``,
+``prefix_csum_at``): no level's scan is formed in full.
 
 On a CUDA tensor ``composite_fwd`` / ``composite_bwd`` /
 ``gaussian_grad_sum`` / ``gaussian_grad_prefix`` launch the kernels in
@@ -424,15 +426,63 @@ def scan_levels(m: int) -> list[int]:
     return levels
 
 
+def block_scans(x: torch.Tensor) -> list[torch.Tensor]:
+    """The levels of ``blocked_scan_plain``'s order over x (L, C): W_0, the
+    scan of each block of 16 rows from +0 (zero-padded), then W_1 the same
+    over the blocks' totals, and so on up to the first level with at most
+    16 rows (the top, whose W is its whole scan)."""
+    levels = []
+    while True:
+        n_rows, c = x.shape
+        nb = -(-n_rows // SCAN_BASE)
+        xp = torch.cat([x, x.new_zeros(nb * SCAN_BASE - n_rows, c)])
+        within = _sequential_scan(xp.view(nb, SCAN_BASE, c))
+        levels.append(within.view(nb * SCAN_BASE, c)[:n_rows])
+        if n_rows <= SCAN_BASE:
+            return levels
+        x = within[:, -1]
+
+
+def prefix_csum_at(levels: list[torch.Tensor], k: torch.Tensor
+                   ) -> torch.Tensor:
+    """The zero-prefixed scan at k (B,), (B, C), rebuilt top-down from the
+    levels' block scans (``block_scans``): S_top = W_top and S_l[i] =
+    W_l[i] + S_{l+1}[i // 16 - 1], the add skipped where i // 16 = 0 (it
+    adds +0 to a sum begun at +0, which is never -0: no bit changes);
+    csum[k] = S_0[k - 1], csum[0] = +0. Bitwise ``blocked_scan_plain``."""
+    idx = [k.long() - 1]
+    for _ in levels[1:]:
+        idx.append(torch.div(idx[-1], SCAN_BASE, rounding_mode="floor") - 1)
+    s = None
+    for w, i in zip(reversed(levels), reversed(idx)):
+        wi = w[i.clamp_min(0)]
+        s = wi if s is None else torch.where(above[:, None], wi + s, wi)
+        above = i >= 0
+    return torch.where(above[:, None], s, torch.zeros_like(s))
+
+
 def gaussian_grad_prefix_plain(pre: torch.Tensor, seg_lo: torch.Tensor,
                                seg_hi: torch.Tensor) -> torch.Tensor:
     """Plain prefix reduction: (n, 10), row g ``csum[seg_hi[g]] -
     csum[seg_lo[g]]`` with csum the zero-prefixed ``blocked_scan_plain`` of
-    the pre-slot-ordered rows ``pre`` (M, 10): the JAX ``fast_binning``
-    backward's ``dsrc`` on the same rows, bit for bit."""
-    csum = torch.cat([pre.new_zeros(1, pre.shape[1]),
-                      blocked_scan_plain(pre)])
-    return csum[seg_hi.long()] - csum[seg_lo.long()]
+    the pre-slot-ordered rows ``pre`` (M, 10), each value rebuilt top-down
+    from the levels' block scans as the kernel rebuilds it
+    (``prefix_csum_at``): the JAX ``fast_binning`` backward's ``dsrc`` on
+    the same rows, bit for bit."""
+    if pre.shape[0] == 0:
+        return pre.new_zeros(seg_lo.shape[0], pre.shape[1])
+    levels = block_scans(pre)
+    return prefix_csum_at(levels, seg_hi) - prefix_csum_at(levels, seg_lo)
+
+
+def prefix_scratch_words(m: int) -> int:
+    """Floats of ``gaussian_grad_prefix``'s scratch for m rows (its source
+    note has the layout): W_0, W_1, level 2's entries, and level 3's and
+    those above it, 10 a row."""
+    l1 = -(-m // SCAN_BASE)
+    l2 = -(-l1 // SCAN_BASE)
+    l3 = -(-l2 // SCAN_BASE)
+    return N_FIELD * (m + l1 + l2 + l3 + sum(scan_levels(l3)))
 
 
 def composite_pair_counts(feat: torch.Tensor, rect: torch.Tensor,
@@ -687,7 +737,8 @@ def gaussian_grad_prefix(pre: torch.Tensor, seg_lo: torch.Tensor,
     ``fast_binning`` backward's: (n, 10) from the pre-slot-ordered rows
     ``pre`` (M, 10) and each Gaussian's run [seg_lo, seg_hi) (int32,
     ``binning.build_tile_bins(pre_slots=True)``), bit for bit
-    ``gaussian_grad_prefix_plain``."""
+    ``gaussian_grad_prefix_plain``. Two launches, three past ~1.2 million
+    rows (``csrc/gaussian_grad_prefix.cu``)."""
     if not pre.is_cuda:
         return gaussian_grad_prefix_plain(pre, seg_lo, seg_hi)
     dev = pre.device
@@ -698,16 +749,17 @@ def gaussian_grad_prefix(pre: torch.Tensor, seg_lo: torch.Tensor,
     _check(seg_hi, "seg_hi", torch.int32, (n,), dev)
     if m >= 2 ** 31 // N_FIELD:
         raise ValueError(f"instance buffer too large for int32 offsets: {m}")
-    # the upper levels' totals, then their scans in place
-    scratch = torch.empty(max(sum(scan_levels(m)), 1) * N_FIELD,
-                          dtype=torch.float32, device=dev)
+    if pre.data_ptr() % 16:      # the kernel reads pre 16 B a load
+        raise ValueError("pre is not 16-byte aligned")
+    words = prefix_scratch_words(m)
+    scratch = torch.empty(words, dtype=torch.float32, device=dev)
     out = torch.empty(n, N_FIELD, dtype=torch.float32, device=dev)
     fn = kernel_fn("gaussian_grad_prefix", "gaussian_grad_prefix", 5,
-                   n_int=2)
+                   n_int=3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(pre.data_ptr(), seg_lo.data_ptr(), seg_hi.data_ptr(),
-                 scratch.data_ptr(), out.data_ptr(), m, n, stream)
+                 scratch.data_ptr(), out.data_ptr(), m, n, words, stream)
     if err != 0:
         raise RuntimeError(f"gaussian_grad_prefix launch failed: CUDA error "
                            f"{err}")
@@ -829,23 +881,21 @@ def instance_records(proj: ProjectedGaussians, rgbz: torch.Tensor,
 
 def _reduction(cfg: RasterConfig, bins: TileBins, band_sum):
     """K2's row map and the per-Gaussian reduction ``cfg.grad_sum`` names,
-    on this layout."""
+    on this layout (with ``band_sum``: a band's, as ``rasterize`` says)."""
     if cfg.grad_sum == "direct":
         return bins.sum_rank, functools.partial(
             band_sum or gaussian_grad_sum, start=bins.sum_start)
     if cfg.grad_sum != "prefix":
         raise ValueError(f"grad_sum={cfg.grad_sum!r}: one of {GRAD_SUMS}")
-    if band_sum is not None:
-        raise NotImplementedError(
-            "grad_sum='prefix' on a band of a sharded render: the bands' "
-            "prefix reductions and their sum are not ported (ROADMAP "
-            "Queue 1)")
     if bins.pre_rank is None:
         raise ValueError("grad_sum='prefix' needs a layout binned with it "
                          "(pre_rank / seg_lo / seg_hi); this one was "
                          "binned for grad_sum='direct'")
-    return bins.pre_rank, functools.partial(
-        gaussian_grad_prefix, seg_lo=bins.seg_lo, seg_hi=bins.seg_hi)
+    own = functools.partial(gaussian_grad_prefix, seg_lo=bins.seg_lo,
+                            seg_hi=bins.seg_hi)
+    if band_sum is None:
+        return bins.pre_rank, own
+    return bins.pre_rank, lambda pre: band_sum(own(pre))
 
 
 def rasterize(proj: ProjectedGaussians, rgbz: torch.Tensor,
@@ -857,8 +907,11 @@ def rasterize(proj: ProjectedGaussians, rgbz: torch.Tensor,
     bins: a carried layout to reuse (see the layout carry above); None
     bins fresh. ``cfg.grad_sum`` picks the backward's per-Gaussian
     reduction (``RasterConfig``); a "prefix" carry must have been binned
-    with it. band_sum: the "direct" reduction of a band of a sharded
-    render, which continues the bands above it (``parallel/sharded.py``).
+    with it. band_sum: how a band of a sharded render completes the whole
+    image's per-Gaussian sums (``parallel/sharded.py``): under "direct" it
+    is the reduction, called as ``band_sum(dsum, start=...)``, which
+    continues the bands above it; under "prefix" it takes the band's own
+    (n, 10) prefix reduction and returns the bands' sum.
     Returns {"image": (6, H, W) [r, g, b, z, sil, z^2] without background,
     "final_T": (H, W), "overflow": () instances dropped at the cap (on a
     carried layout: ``_reuse_overflow``), "num_instances": () instances in

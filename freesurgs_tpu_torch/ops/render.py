@@ -26,7 +26,7 @@ from ..core.camera import Camera
 from ..core.sh import sh_to_rgb_clamped
 from ..core.transforms import transform_points
 from .binning import TileBins
-from .projection import project_gaussians
+from .projection import TILE, project_gaussians
 from .raster_cuda import RasterConfig, instance_records, rasterize
 
 # Instance-buffer cap used when the caller names none (the JAX package's
@@ -147,3 +147,7 @@ def render(means3d: torch.Tensor, quats: torch.Tensor,
         "num_instances": out["num_instances"],
     }
 
+
+def grid_dims(cam: Camera) -> tuple[int, int]:
+    """The camera's 16 px tile grid, (columns, rows)."""
+    return -(-cam.width // TILE), -(-cam.height // TILE)

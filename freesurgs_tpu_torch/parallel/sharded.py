@@ -15,10 +15,11 @@ steps:
    a CPU tensor, with the caller's instance cap divided over the bands.
 
 JAX's shard_map turns the transpose of a replicated input into a psum of
-the bands' gradients. Here the backward continues the per-Gaussian sum
-from band to band instead (``_band_sum``): band b seeds its sums of K2's
-rows with band b-1's result and hands its own to band b+1, and the last
-band's sums, the whole image's, go to every rank. The bands' rows come in
+the bands' gradients. Under ``grad_sum="direct"`` (the default) the
+backward continues the per-Gaussian sum from band to band instead
+(``_band_sum``): band b seeds its sums of K2's rows with band b-1's result
+and hands its own to band b+1, and the last band's sums, the whole
+image's, go to every rank. The bands' rows come in
 the single image's slot order (its tile rows in order). When the band
 height is a multiple of the kernels' 32 px bin, K1 and K2 also give each
 pixel and slot the single render's values bit for bit (shifting a mean by
@@ -28,7 +29,15 @@ opacity, rgb, z) is the single-process one, bit for bit, and band-sharded
 training repeats single-process training. A psum of per-band sums differs
 in the last bits on Gaussians that straddle bands, and Adam and densify
 amplify that (on the H100, a 1280x1024 Trainer on 2 bands drifted by 5e-5
-in the loss within 30 iterations and then densified other Gaussians). The
+in the loss within 30 iterations and then densified other Gaussians).
+
+Under ``grad_sum="prefix"`` the bands do as JAX's do: each band bins with
+pre-slots and reduces K2's rows by ``gaussian_grad_prefix`` over its own
+layout (the prefix sum of the band's instances in depth order), and one
+all-reduce over the tiles group adds the bands' (n, 10) sums, JAX's psum.
+That is not bitwise the single-process "prefix" render: each band's
+layout has a prefix sum of its own, so the two differ by those sums'
+rounding, as JAX's bands differ from its single render. The
 parameters, the pose and ``probe2d`` get their gradient from ordinary
 autograd upstream of the records, the same on every rank. The collectives
 are autograd functions:
@@ -98,11 +107,14 @@ def _clip_to_band(b: int, band_h: int, grid_ty_band: int, mean2d, rect,
     return mean2d, rect, touched, radius
 
 
-def _band_sum(group):
+def _band_sum(group, grad_sum: str):
     """The backward's per-Gaussian sum for this rank's band of ``group``
-    (``rasterize``'s ``band_sum``): the bands above it continued, then the
-    last band's sums broadcast, so every rank returns the whole image's
-    sums."""
+    (``rasterize``'s ``band_sum``), so that every rank returns the whole
+    image's sums: under "direct" the bands above it continued, then the
+    last band's sums broadcast; under "prefix" the bands' own prefix
+    reductions all-reduced."""
+    if grad_sum == "prefix":
+        return lambda part: all_reduce_sum(part, group)
     r, n = dist.get_rank(group), dist.get_world_size(group)
 
     def grad_sum(dsum, start):
@@ -248,15 +260,11 @@ def render_sharded_full(mesh: Mesh, means3d, quats, log_scales,
     per-Gaussian stage when N >= SHARD_PROJECTION_MIN_N on more than one
     band. Differentiable in the Gaussians (unless ``gs_grad`` is False),
     the pose (unless ``cam_grad`` is False) and ``probe2d``; rows past
-    cam.height (the bands' padding) are cropped. The backward reduction is
-    the chained "direct" sum (``_band_sum``): ``grad_sum="prefix"`` (JAX's
-    per-band fast-binner reduction and psum) is not ported and raises.
+    cam.height (the bands' padding) are cropped. ``grad_sum``: the
+    backward's reduction, "direct" (the bands chain one sum) or "prefix"
+    (each band's prefix reduction, the bands' sums all-reduced; module
+    doc).
     """
-    if grad_sum != "direct":
-        raise NotImplementedError(
-            f"grad_sum={grad_sum!r} under a mesh: the band-sharded prefix "
-            "reduction is not ported (ROADMAP Queue 1); bands chain the "
-            "direct sum")
     n = means3d.shape[0]
     n_shards = mesh.shape[TILE_AXIS]
     group = mesh.tiles_group
@@ -301,8 +309,9 @@ def render_sharded_full(mesh: Mesh, means3d, quats, log_scales,
                                tile_rect=rect, tiles_touched=touched)
     out = rasterize(bproj, rgbz, x[:, 5],
                     RasterConfig(height=band_h, width=pcam.width,
-                                 max_instances=cap),
-                    band_sum=None if group is None else _band_sum(group))
+                                 max_instances=cap, grad_sum=grad_sum),
+                    band_sum=None if group is None
+                    else _band_sum(group, grad_sum))
     band = torch.cat([out["image"] + out["final_T"][None]
                       * bg6[:, None, None], out["final_T"][None]])
     if group is None:
@@ -335,17 +344,19 @@ def render_sharded_full(mesh: Mesh, means3d, quats, log_scales,
 
 def render_sharded(mesh: Mesh, means3d, quats, log_scales, logit_opacity,
                    sh_coeffs, w2c, cam: Camera, *, active=None,
-                   sh_degree: int = 0, max_instances: int = 4096, bg=None):
+                   sh_degree: int = 0, max_instances: int = 4096, bg=None,
+                   grad_sum: str = "direct"):
     """Full-image render with tile rows sharded over the mesh: render
     (3, Hpad, W), render_dep, render_sil, final_T over the padded height
     (rows past cam.height are background) and pad_height. Differentiable
-    in the Gaussians and the pose."""
+    in the Gaussians and the pose; ``grad_sum`` as
+    ``render_sharded_full``'s."""
     pcam = pad_height_for(cam, mesh.shape[TILE_AXIS])
     out = render_sharded_full(mesh, means3d, quats, log_scales,
                               logit_opacity, sh_coeffs, w2c, pcam,
                               active=active, sh_degree=sh_degree,
                               max_instances=max_instances, bg=bg,
-                              shard_projection=False)
+                              shard_projection=False, grad_sum=grad_sum)
     return {"render": out["render"], "render_dep": out["render_dep"],
             "render_sil": out["render_sil"], "final_T": out["final_T"],
             "pad_height": pcam.height}
@@ -353,14 +364,16 @@ def render_sharded(mesh: Mesh, means3d, quats, log_scales, logit_opacity,
 
 def sharded_train_step(mesh: Mesh, params: dict, w2c, gt_image,
                        cam: Camera, *, sh_degree: int = 0,
-                       max_instances: int = 4096, lr: float = 1e-3):
+                       max_instances: int = 4096, lr: float = 1e-3,
+                       grad_sum: str = "direct"):
     """One SGD step on the sharded renderer's padded-image mean-squared
     error. params: means, quats, log_scales, logit_opacity, sh; gt_image
     (3, Hpad, W). Returns (new_params, loss)."""
     p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     out = render_sharded(mesh, p["means"], p["quats"], p["log_scales"],
                          p["logit_opacity"], p["sh"], w2c, cam,
-                         sh_degree=sh_degree, max_instances=max_instances)
+                         sh_degree=sh_degree, max_instances=max_instances,
+                         grad_sum=grad_sum)
     loss = torch.mean((out["render"] - gt_image) ** 2)
     grads = torch.autograd.grad(loss, list(p.values()))
     return ({k: (v - lr * g).detach() for (k, v), g in zip(p.items(), grads)},

@@ -11,7 +11,10 @@ in ``freesurgs_tpu/ops/raster_pallas.py:737-756``) against the JAX package:
     padding slot to it, whose row the backward writes as +0;
 (b) ``blocked_scan_plain`` against ``jnp.cumsum`` under jit, bitwise, 1-D
     and (M, 10), at lengths around the block of 16 and past 16^4 rows
-    (5 levels);
+    (5 levels); and the reduction's decomposition, which the kernel shares
+    (each csum value rebuilt top-down from the levels' block scans),
+    bitwise ``blocked_scan_plain`` then the two lookups, on tilings with
+    empty and one-row runs;
 (c) the reduction (``gaussian_grad_prefix``, its plain version on the CPU)
     against JAX's ``_composite_bwd`` fast branch on the same (10, M) rows,
     bitwise: JAX's kernels are stubbed to hand its reduction those rows.
@@ -27,8 +30,12 @@ in ``freesurgs_tpu/ops/raster_pallas.py:737-756``) against the JAX package:
     fast binner by default, at the port's Trainer-step gates
     (tests/test_torch_bin_reuse.py);
 and the switch's refusals: an unknown value, a "prefix" render on a
-layout binned without pre-slots, a band-sharded render.
+layout binned without pre-slots; and a one-rank mesh's band-sharded
+"prefix" render, the single render (the bands' case is in
+tests/test_torch_parallel.py).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -41,9 +48,12 @@ from freesurgs_tpu.ops.raster_pallas import RasterConfig as JRC, \
     compute_bin_state, rasterize_pallas
 from freesurgs_tpu.train import densify as jd
 from freesurgs_tpu.train import steps as js
+from freesurgs_tpu_torch.data.synthetic import make_scene
 from freesurgs_tpu_torch.ops import raster_cuda as rc
 from freesurgs_tpu_torch.ops.binning import build_tile_bins, derive_bin_rect
 from freesurgs_tpu_torch.ops.projection import ProjectedGaussians
+from freesurgs_tpu_torch.ops.render import render
+from freesurgs_tpu_torch.parallel.mesh import make_mesh
 from freesurgs_tpu_torch.parallel.sharded import render_sharded_full
 from freesurgs_tpu_torch.train import densify as td
 from freesurgs_tpu_torch.train import steps as ts
@@ -136,6 +146,39 @@ def test_blocked_scan_is_jnp_cumsum(length):
 
 def test_scan_levels_of_the_full_width_layout():
     assert rc.scan_levels(824_341) == [51_522, 3_221, 202, 13]
+
+
+def runs(rng, m, n):
+    """Runs [lo, hi) tiling [0, m), shuffled: empty ones (at 0 and at m
+    too), one-row ones and longer ones."""
+    one = rng.integers(0, m, 2)
+    b = np.sort(np.concatenate([rng.integers(0, m + 1, n), [0, 0, m, m],
+                                one, one + 1]))
+    lo, hi = b[:-1], b[1:]
+    assert np.any(hi == lo) and np.any(hi - lo == 1)
+    order = rng.permutation(len(lo))
+    return (torch.tensor(lo[order], dtype=torch.int32),
+            torch.tensor(hi[order], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("length", [15, 16, 17, 255, 256, 257, 4095, 4096,
+                                    4097, 16 ** 4 + 1])
+def test_decomposition_is_scan_then_lookup(length):
+    rng = np.random.default_rng(length + 7)
+    x = wide(rng, (length, 10))
+    x[rng.random(length) < 0.05] = -0.0
+    pre = torch.tensor(x)
+    lo, hi = runs(rng, length, max(12, length // 3))
+    csum = torch.cat([pre.new_zeros(1, 10), rc.blocked_scan_plain(pre)])
+    want = (csum[hi.long()] - csum[lo.long()]).numpy()
+    got = rc.gaussian_grad_prefix(pre, lo, hi).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    levels = rc.block_scans(pre)
+    assert [lv.shape[0] for lv in levels[1:]] == rc.scan_levels(length)
+    k = torch.arange(length + 1)
+    np.testing.assert_array_equal(
+        rc.prefix_csum_at(levels, k).numpy().view(np.int32),
+        csum.numpy().view(np.int32))
 
 
 # ----------------------------------------------------------------- (c)
@@ -287,10 +330,28 @@ def test_switch_refuses_what_it_does_not_run():
     with pytest.raises(ValueError, match="binned"):
         rc.rasterize(*args, rc.RasterConfig(64, 64, 1 << 20, "prefix"),
                      bins=direct)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        rc.rasterize(*args, rc.RasterConfig(64, 64, 1 << 20, "prefix"),
-                     band_sum=rc.gaussian_grad_sum)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        render_sharded_full(None, *([None] * 6), cam, grad_sum="prefix")
     with pytest.raises(ValueError, match="grad_sum"):
         ts.check_supported(ts.TrainConfig(grad_sum="sorted"))
+
+
+def test_one_rank_mesh_prefix_is_the_single_render():
+    """A band-sharded "prefix" render on a one-rank mesh (no group: the
+    band's sum is the whole) is ``render``'s "prefix" render, bit for bit,
+    gradients included."""
+    sc = make_scene(num_frames=2, n_gaussians=120, height=48, width=64,
+                    seed=4, device="cpu")
+    mesh = make_mesh(device="cpu")
+
+    def grads(fn):
+        p = [t.detach().clone().requires_grad_(True) for t in
+             (sc.means, sc.quats, sc.log_scales, sc.logit_opacity, sc.sh)]
+        out = fn(*p, sc.gt_w2c[0], sc.cam, max_instances=1 << 16,
+                 grad_sum="prefix")
+        loss = (out["render"] * torch.linspace(-1, 1, 64)).sum() \
+            + out["render_dep"].sum()
+        return [out["render"], out["render_dep"]] + list(
+            torch.autograd.grad(loss, p))
+
+    for a, b in zip(grads(functools.partial(render_sharded_full, mesh)),
+                    grads(render)):
+        assert torch.equal(a, b)

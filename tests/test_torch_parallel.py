@@ -12,6 +12,12 @@ Scenes: 64x64 with 150 (90 under ``shard_projection``)
 Gaussians, so 2 bands are 32 rows high and 4 bands 16 rows, half of the
 port's 32 px bin; the sequences 32x48.
 
+The same renders and a mapping chunk also run with ``grad_sum="prefix"``
+(each band reduces by its own prefix sum, the bands' sums all-reduced, as
+JAX's bands do); on 2 bands each rank's band layout is held element for
+element to the JAX fast binner's on that band's records, and the
+all-reduced sums to the sum of the bands' own.
+
 Tolerances: pixels 2e-5; gradients 5e-5 of each field's largest
 (normalized, K2's gate); ``grad_denom`` and radii exact; parameters after
 3 mapping steps 1e-3, logit_opacity 1e-2 (JAX's tests/test_sharded.py:
@@ -33,6 +39,7 @@ import torch
 import torch.multiprocessing as tmp
 
 from freesurgs_tpu.core.camera import Camera as JCam
+from freesurgs_tpu.ops.projection import ProjectedGaussians as JProj
 from freesurgs_tpu.models.gaussians import GaussianField as JField
 from freesurgs_tpu.parallel import sharded as jsh
 from freesurgs_tpu.parallel.mesh import make_mesh as jmesh
@@ -42,6 +49,8 @@ from freesurgs_tpu_torch.data.synthetic import make_scene
 from freesurgs_tpu_torch.parallel import sharded as tsh
 
 import torch_parallel_worker as wk
+from test_torch_binning import jderive, jsnug
+from test_torch_grad_prefix import jfast_aux
 from test_torch_train import close_params
 from test_torch_viz import one_thread  # noqa: F401 (autouse fixture)
 
@@ -335,6 +344,53 @@ def test_sharded_render_matches_jax(run, name):
     close_render(run["ranks"][0], run["jax"][name], f"{name}_")
 
 
+@pytest.mark.parametrize("name", ["b2", "b4", "sp"])
+def test_sharded_prefix_render_matches_jax(run, name):
+    """The same with ``grad_sum="prefix"`` (each band's prefix reduction,
+    the bands' sums all-reduced) against JAX ``render_sharded_full(impl=
+    "oracle")``: the reduction moves no gradient past the file's gates."""
+    close_render(run["ranks"][0], run["jax"][name], f"p{name}_")
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_prefix_band_layout_is_jax_bin_aux(run, rank):
+    """On the 2 x 2 mesh (32-row bands, one bin high) each band's pre-slot
+    layout, binned from the band's clipped records as the rank rendered
+    it, equals JAX ``build_tile_bins_fast(..., return_aux=True)`` on those
+    records element for element; and the all-reduced sums are the rank-
+    order sum of the two bands' own prefix sums, bitwise."""
+    with np.load(run["dir"] / f"prefix_band{rank}.npz") as f:
+        band = {k: f[k] for k in f.files}
+    proj = JProj(*(jnp.asarray(band[k]) for k in JProj._fields))
+    m = band["gather_idx"].shape[0]
+    gx = -(-int(band["width"]) // 32)
+    gy = -(-int(band["height"]) // 32)
+    assert gy == 1 and int(band["overflow"]) == 0
+    bins, aux = jfast_aux(jderive(jsnug(proj, jnp.asarray(band["opacity"])),
+                                  2), gx, gy, m, True)
+    np.testing.assert_array_equal(np.asarray(bins.gather_idx),
+                                  band["gather_idx"])
+    np.testing.assert_array_equal(np.asarray(aux.seg_lo), band["seg_lo"])
+    np.testing.assert_array_equal(np.asarray(aux.seg_hi), band["seg_hi"])
+    slot_of = np.empty(m, np.int64)
+    slot_of[band["pre_rank"]] = np.arange(m)      # pre-slot -> slot
+    pos = np.asarray(aux.pos)
+    held = pos < m
+    np.testing.assert_array_equal(slot_of[held], pos[held])
+    n = band["opacity"].shape[0]
+    assert np.all(band["gather_idx"][slot_of[~held]] == n)
+    # the two bands of this rank's data row, in rank order
+    first = rank - rank % 2
+    parts = []
+    for r in (first, first + 1):
+        with np.load(run["dir"] / f"prefix_band{r}.npz") as f:
+            parts.append(f["part"])
+    np.testing.assert_array_equal(
+        (torch.tensor(parts[0]) + torch.tensor(parts[1])).numpy(),
+        band["total"])
+    assert np.abs(band["part"]).max() > 0
+
+
 @pytest.mark.parametrize("name,single", [("b2", "single_p"),
                                          ("b4", "single_p"),
                                          ("sp", "single_q")])
@@ -380,6 +436,20 @@ def test_mapping_chunk_with_mesh(run, ref):
                                atol=OPACITY_TOL)
     close_grads(r["map_grad_accum"], want["grad_accum"], "grad_accum")
     np.testing.assert_array_equal(r["map_grad_denom"], want["grad_denom"])
+
+
+def test_mapping_chunk_prefix_with_mesh(run):
+    """``mapping_chunk(mesh=)`` with ``grad_sum="prefix"`` on 4 bands
+    against JAX's chunk on the same mesh, at the gates above."""
+    r, want = run["ranks"][0], run["jax"]["map"]
+    assert float(r["pmap_loss"]) > 1e-3
+    for k in ("means", "quats", "log_scales", "sh_dc", "max_radii2d"):
+        np.testing.assert_allclose(r[f"pmap_{k}"], want[k], atol=PARAM_TOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(r["pmap_logit_opacity"],
+                               want["logit_opacity"], atol=OPACITY_TOL)
+    close_grads(r["pmap_grad_accum"], want["grad_accum"], "grad_accum")
+    np.testing.assert_array_equal(r["pmap_grad_denom"], want["grad_denom"])
 
 
 @pytest.mark.parametrize("ref", ["jax", "port"])

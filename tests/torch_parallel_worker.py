@@ -11,6 +11,11 @@ stay free of it. The meshes, all over the same 4 ranks:
 - 1 x 4 (``tiles`` 4): 16 px bands at 64 rows, half a 32 px bin each;
 - 2 x 2: two rows of 2 bands;
 - 4 x 1: four sequences, one rank each.
+
+The band-sharded renders and a mapping chunk also run with
+``grad_sum="prefix"`` (``p``-prefixed keys); on the 2 x 2 mesh each rank
+also writes its band's records, layout and prefix sums as it rendered
+them (``prefix_band<r>.npz``), which differ from rank to rank.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from freesurgs_tpu_torch.convert import field_from_numpy
 from freesurgs_tpu_torch.core.camera import Camera
 from freesurgs_tpu_torch.ops.render import render
 from freesurgs_tpu_torch.parallel import dryrun
+from freesurgs_tpu_torch.parallel import sharded
 from freesurgs_tpu_torch.parallel.mesh import make_mesh, same_on_all_ranks
 from freesurgs_tpu_torch.parallel.multiseq import (multiseq_mapping_chunk,
                                                    shard_states, stack_states)
@@ -96,7 +102,7 @@ def render_grads(render_fn, inp, prefix) -> dict:
     return res
 
 
-def mapping_run(inp, mesh):
+def mapping_run(inp, mesh, grad_sum="direct"):
     """mapping_chunk: 3 single-view iterations on frame 0 of the mapping
     scene, from its perturbed field."""
     mcam = camera(inp["m_cam"])
@@ -104,8 +110,39 @@ def mapping_run(inp, mesh):
     return steps.mapping_chunk(
         st, torch.tensor(inp["m_colors"]), torch.tensor(inp["m_monodeps"]),
         torch.tensor(inp["m_w2c"]), [0, 0, 0], [], mcam,
-        steps.TrainConfig(**MAP_CFG), two_views=False, sh_degree=0,
-        mesh=mesh)
+        steps.TrainConfig(**MAP_CFG, grad_sum=grad_sum), two_views=False,
+        sh_degree=0, mesh=mesh)
+
+
+def band_spy(out: dict):
+    """Wrap ``parallel.sharded``'s ``rasterize`` and ``all_reduce_sum`` so
+    that one render records this rank's band as it was rendered: the
+    clipped records and opacity, the layout, and the band's own prefix
+    sums beside their all-reduce. Returns the undo."""
+    rasterize, reduce = sharded.rasterize, sharded.all_reduce_sum
+
+    def spy_rasterize(proj, rgbz, opacity, cfg, bins=None, band_sum=None):
+        res = rasterize(proj, rgbz, opacity, cfg, bins=bins,
+                        band_sum=band_sum)
+        out.update({k: v.detach() for k, v in proj._asdict().items()})
+        b = res["bins"]
+        out.update(opacity=opacity.detach(), gather_idx=b.gather_idx,
+                   pre_rank=b.pre_rank, seg_lo=b.seg_lo, seg_hi=b.seg_hi,
+                   overflow=b.overflow, height=np.int64(cfg.height),
+                   width=np.int64(cfg.width))
+        return res
+
+    def spy_reduce(x, group):
+        total = reduce(x, group)
+        if x.dim() == 2 and x.shape[1] == 10:   # the bands' (n, 10) sums
+            out.update(part=x.detach(), total=total.detach())
+        return total
+
+    sharded.rasterize, sharded.all_reduce_sum = spy_rasterize, spy_reduce
+
+    def undo():
+        sharded.rasterize, sharded.all_reduce_sum = rasterize, reduce
+    return undo
 
 
 def tracking_run(inp, mesh):
@@ -172,6 +209,19 @@ def scenarios(inp, out_dir: Path) -> dict:
         r = render_grads(functools.partial(render_sharded_full, mesh,
                                            shard_projection=sp), inp, prefix)
         res.update({f"{name}_{k}": v for k, v in r.items()})
+        band = {}
+        undo = band_spy(band) if name == "b2" else (lambda: None)
+        try:
+            r = render_grads(functools.partial(
+                render_sharded_full, mesh, shard_projection=sp,
+                grad_sum="prefix"), inp, prefix)
+        finally:
+            undo()
+        res.update({f"p{name}_{k}": v for k, v in r.items()})
+        if band:
+            np.savez(out_dir / f"prefix_band{dist.get_rank()}.npz",
+                     **{k: (v.numpy() if torch.is_tensor(v) else v)
+                        for k, v in band.items()})
 
     cam = camera(inp["cam"])
     p = {k: torch.tensor(inp["p_" + k]) for k in PARAM_KEYS}
@@ -190,6 +240,9 @@ def scenarios(inp, out_dir: Path) -> dict:
     st, aux = mapping_run(inp, mesh4)
     res.update({f"map_{k}": getattr(st.field, k) for k in FIELD_OUT})
     res["map_loss"] = aux["loss"]
+    st, aux = mapping_run(inp, mesh4, grad_sum="prefix")
+    res.update({f"pmap_{k}": getattr(st.field, k) for k in FIELD_OUT})
+    res["pmap_loss"] = aux["loss"]
     q, t, met = tracking_run(inp, mesh22)
     res.update(trk_q=q, trk_t=t, trk_loss=met["loss"])
 
