@@ -1,0 +1,8 @@
+"""Device kernels launched per global iteration, from the traced window."""
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    if not tr or not tr["iterations"] or not tr["launches"]:
+        return None
+    return tr["launches"] / tr["iterations"]
