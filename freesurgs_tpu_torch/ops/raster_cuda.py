@@ -61,6 +61,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span
 from .binning import CHUNK, TileBins, build_tile_bins, derive_bin_rect
 from .oracle import ALPHA_MIN, _order_terms, gaussian_alpha
 from .projection import TILE, ProjectedGaussians, to_int32
@@ -73,9 +74,10 @@ NPIX = BIN * BIN
 # Kernel launches since the last reset, counted where each kernel launches.
 LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "gaussian_grad_sum": 0,
             "gaussian_grad_prefix": 0}
-# Binner runs since the last reset, counted where the binner runs
-# (``_bin_state``): a render that reuses a carried layout does not count.
-BINS = {"build_tile_bins": 0}
+# Binner runs and renders since the last reset: ``_bin_state`` counts the
+# binner's runs (a render that reuses a carried layout does not run it),
+# ``rasterize`` every render.
+BINS = {"build_tile_bins": 0, "renders": 0}
 
 
 def reset_launches() -> None:
@@ -84,7 +86,8 @@ def reset_launches() -> None:
 
 
 def reset_bins() -> None:
-    BINS["build_tile_bins"] = 0
+    for k in BINS:
+        BINS[k] = 0
 
 
 # The backward's per-Gaussian reductions (``RasterConfig.grad_sum``).
@@ -797,10 +800,12 @@ class Composite(torch.autograd.Function):
     def backward(ctx, gout):
         feat, rect, starts, counts, keff, out, row_rank = ctx.saved_tensors
         gx, gy = ctx.grid
-        dsum = composite_bwd(feat, rect, starts, counts, keff, out,
-                             gout.contiguous(), row_rank, gx, gy)
+        with span("k2"):
+            dsum = composite_bwd(feat, rect, starts, counts, keff, out,
+                                 gout.contiguous(), row_rank, gx, gy)
         # per-Gaussian sums in a fixed order; padding rows add nothing
-        dsrc = ctx.reduce(dsum)
+        with span("grad_sum"):
+            dsrc = ctx.reduce(dsum)
         return (dsrc[:, 0:2], dsrc[:, 2:5], dsrc[:, 6:10], dsrc[:, 5],
                 None, None, None, None, None, None, None, None)
 
@@ -917,12 +922,14 @@ def rasterize(proj: ProjectedGaussians, rgbz: torch.Tensor,
     carried layout: ``_reuse_overflow``), "num_instances": () instances in
     the layout, "bins": the layout used}.
     """
-    proj_b = _prune_and_snug(proj, opacity)
-    if bins is None:
-        bins = _bin_state(proj_b, cfg)
-        overflow = bins.overflow
-    else:
-        overflow = _reuse_overflow(proj_b, cfg)
+    BINS["renders"] += 1
+    with span("bin"):
+        proj_b = _prune_and_snug(proj, opacity)
+        if bins is None:
+            bins = _bin_state(proj_b, cfg)
+            overflow = bins.overflow
+        else:
+            overflow = _reuse_overflow(proj_b, cfg)
     row_rank, reduce = _reduction(cfg, bins, band_sum)
     out = Composite.apply(proj_b.mean2d, proj_b.conic, rgbz, opacity,
                           proj_b.tile_rect, bins.gather_idx, bins.tile_start,

@@ -25,6 +25,7 @@ import torch
 from ..core.camera import Camera
 from ..core.sh import sh_to_rgb_clamped
 from ..core.transforms import transform_points
+from ..utils.profiling import span
 from .binning import TileBins
 from .projection import TILE, project_gaussians
 from .raster_cuda import RasterConfig, instance_records, rasterize
@@ -44,19 +45,20 @@ def raster_config(cam: Camera, max_instances: int = 0,
 def _raster_inputs(means_w, quats, log_scales, logit_opacity, sh_coeffs,
                    w2c, cam, active, probe2d, sh_degree):
     """Project the field for ``rasterize``: (proj, rgbz (N, 4), opacity)."""
-    mean_cam = transform_points(w2c, means_w)
-    opacity = torch.sigmoid(logit_opacity)
-    proj = project_gaussians(mean_cam, torch.exp(log_scales), quats, cam,
-                             active=active)
-    if probe2d is not None:
-        proj = proj._replace(mean2d=proj.mean2d + probe2d)
+    with span("project"):
+        mean_cam = transform_points(w2c, means_w)
+        opacity = torch.sigmoid(logit_opacity)
+        proj = project_gaussians(mean_cam, torch.exp(log_scales), quats, cam,
+                                 active=active)
+        if probe2d is not None:
+            proj = proj._replace(mean2d=proj.mean2d + probe2d)
 
-    # SH -> RGB against the origin; rsqrt(max(|x|^2, eps^2)) keeps the
-    # gradient of exactly-zero (unused) means at 0 instead of 0 * inf.
-    n2 = torch.sum(means_w * means_w, dim=-1, keepdim=True)
-    dirs = means_w * torch.rsqrt(torch.clamp_min(n2, 1e-16))
-    rgb = sh_to_rgb_clamped(sh_degree, sh_coeffs, dirs)
-    return proj, torch.cat([rgb, proj.depth[:, None]], dim=1), opacity
+        # SH -> RGB against the origin; rsqrt(max(|x|^2, eps^2)) keeps the
+        # gradient of exactly-zero (unused) means at 0 instead of 0 * inf.
+        n2 = torch.sum(means_w * means_w, dim=-1, keepdim=True)
+        dirs = means_w * torch.rsqrt(torch.clamp_min(n2, 1e-16))
+        rgb = sh_to_rgb_clamped(sh_degree, sh_coeffs, dirs)
+        return proj, torch.cat([rgb, proj.depth[:, None]], dim=1), opacity
 
 
 def render_records(means3d, quats, log_scales, logit_opacity, sh_coeffs,
@@ -120,32 +122,33 @@ def render(means3d: torch.Tensor, quats: torch.Tensor,
     proj, rgbz, opacity = _raster_inputs(
         gs(means3d), gs(quats), gs(log_scales), gs(logit_opacity),
         gs(sh_coeffs), w2c_used, cam, active, probe2d, sh_degree)
-    bg6 = torch.cat([bg, torch.ones(3, dtype=bg.dtype, device=bg.device)])
+    with span("raster"):
+        bg6 = torch.cat([bg, torch.ones(3, dtype=bg.dtype,
+                                        device=bg.device)])
+        out = rasterize(proj, rgbz, opacity,
+                        raster_config(cam, max_instances, grad_sum),
+                        bins=None if rebin else bins)
+        final_T = out["final_T"]
+        image6 = out["image"] + final_T[None] * bg6[:, None, None]
 
-    out = rasterize(proj, rgbz, opacity,
-                    raster_config(cam, max_instances, grad_sum),
-                    bins=None if rebin else bins)
-    final_T = out["final_T"]
-    image6 = out["image"] + final_T[None] * bg6[:, None, None]
-
-    depth = image6[3]
-    sil = image6[4]
-    depth_sq = image6[5]
-    extra = {} if rebin is None else {"bins": out["bins"]}
-    return {
-        **extra,
-        "render": image6[0:3],
-        "render_dep": depth,
-        "render_sil": sil,
-        "presence_mask": sil > 0.3,
-        "uncertainty": (depth_sq - depth * depth).detach(),
-        "final_T": final_T,
-        "render_w2c": w2c_used,
-        "radii": proj.radius,
-        "visibility": proj.radius > 0,
-        "overflow": out["overflow"],
-        "num_instances": out["num_instances"],
-    }
+        depth = image6[3]
+        sil = image6[4]
+        depth_sq = image6[5]
+        extra = {} if rebin is None else {"bins": out["bins"]}
+        return {
+            **extra,
+            "render": image6[0:3],
+            "render_dep": depth,
+            "render_sil": sil,
+            "presence_mask": sil > 0.3,
+            "uncertainty": (depth_sq - depth * depth).detach(),
+            "final_T": final_T,
+            "render_w2c": w2c_used,
+            "radii": proj.radius,
+            "visibility": proj.radius > 0,
+            "overflow": out["overflow"],
+            "num_instances": out["num_instances"],
+        }
 
 
 def grid_dims(cam: Camera) -> tuple[int, int]:

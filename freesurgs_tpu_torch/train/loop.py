@@ -59,7 +59,7 @@ from ..models.pose import PoseTable, identity_poses
 from ..ops.render import render
 from ..parallel.mesh import Mesh
 from ..utils.image import add_label, colorize_depth, colorize_flow, hcat
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, span
 from .optim import AdamState, adam_init
 from .steps import MappingState, TrainConfig, check_supported, \
     mapping_chunk, tracking_loop
@@ -387,56 +387,58 @@ class Trainer:
         done = 0
         t0 = time.time()
         while done < iters:
-            timer.start()
-            self._update_sh_degree()
-            n = min(self.global_chunk, iters - done)
-            ts_np = rng.choice(i_train, size=n)
-            if self.cfg.rebin_every > 1:
-                ts_np = np.sort(ts_np)
-            ts = [int(t) for t in ts_np]
-            self.state, aux = mapping_chunk(
-                self.state, self.colors, self.monodeps, w2c_all, ts, [],
-                self.cam, self.cfg, two_views=False,
-                sh_degree=self.active_sh_degree, densify_enabled=True,
-                mesh=self.mesh)
-            done += n
-            self.cur_frame = ts[-1]
-            self._maybe_grow()
-            if self.viewer is not None:
-                timer.stop(sync_on=self.state.field.num_active)
-                self._viewer_tick(n * timer.rays_per_sec)
-            self._global_done += n
-            total = self._global_done
-            # before the checkpoint, so that it holds the refined poses
-            if self.pose_ba_every and total % self.pose_ba_every < n:
-                w2c_all = self._pose_ba_pass(total)
-            if self.checkpoint_dir and total % self.checkpoint_every < n:
-                self.save(f"{self.checkpoint_dir}/ckpt_{total:07d}")
-            if total % 1000 < n:
-                terms = aux["loss_terms"]
-                dt = {k: int(v) for k, v in aux["densify_totals"].items()
-                      if float(v) > 0}
-                self.log_fn(
-                    f"[global {total}] loss={float(aux['loss']):.4f}"
-                    f" rgb={float(terms[0]):.4f} pear={float(terms[1]):.4f}"
-                    f" lp={float(terms[2]):.4f}"
-                    f" active={int(aux['num_active'])}"
-                    + (f" densify={dt}" if dt else "")
-                    + f" ({time.time() - t0:.1f}s)")
-                self._report_nonfinite(aux, f"global {total}")
-            self.history.append({"stage": "global", "iter": total,
-                                 "loss": float(aux["loss"]),
-                                 "num_active": int(aux["num_active"]),
-                                 "overflow": float(aux["overflow_max"])})
-            self._warn_overflow(self.history[-1]["overflow"],
-                                f"global {total}")
-            if self.validation_every and total % self.validation_every < n:
-                val = self.validation()
-                self.history.append({"stage": "global_val", "iter": total,
-                                     **{k: v for k, v in val.items()
-                                        if isinstance(v, (int, float))}})
-            if total % 1000 < n:
-                self._flush_history()
+            with span("chunk"):
+                timer.start()
+                self._update_sh_degree()
+                n = min(self.global_chunk, iters - done)
+                ts_np = rng.choice(i_train, size=n)
+                if self.cfg.rebin_every > 1:
+                    ts_np = np.sort(ts_np)
+                ts = [int(t) for t in ts_np]
+                self.state, aux = mapping_chunk(
+                    self.state, self.colors, self.monodeps, w2c_all, ts, [],
+                    self.cam, self.cfg, two_views=False,
+                    sh_degree=self.active_sh_degree, densify_enabled=True,
+                    mesh=self.mesh)
+                done += n
+                self.cur_frame = ts[-1]
+                self._maybe_grow()
+                if self.viewer is not None:
+                    timer.stop(sync_on=self.state.field.num_active)
+                    self._viewer_tick(n * timer.rays_per_sec)
+                self._global_done += n
+                total = self._global_done
+                # before the checkpoint, so that it holds the refined poses
+                if self.pose_ba_every and total % self.pose_ba_every < n:
+                    w2c_all = self._pose_ba_pass(total)
+                if self.checkpoint_dir and total % self.checkpoint_every < n:
+                    self.save(f"{self.checkpoint_dir}/ckpt_{total:07d}")
+                if total % 1000 < n:
+                    terms = aux["loss_terms"]
+                    dt = {k: int(v) for k, v in aux["densify_totals"].items()
+                          if float(v) > 0}
+                    self.log_fn(
+                        f"[global {total}] loss={float(aux['loss']):.4f}"
+                        f" rgb={float(terms[0]):.4f}"
+                        f" pear={float(terms[1]):.4f}"
+                        f" lp={float(terms[2]):.4f}"
+                        f" active={int(aux['num_active'])}"
+                        + (f" densify={dt}" if dt else "")
+                        + f" ({time.time() - t0:.1f}s)")
+                    self._report_nonfinite(aux, f"global {total}")
+                self.history.append({"stage": "global", "iter": total,
+                                     "loss": float(aux["loss"]),
+                                     "num_active": int(aux["num_active"]),
+                                     "overflow": float(aux["overflow_max"])})
+                self._warn_overflow(self.history[-1]["overflow"],
+                                    f"global {total}")
+                if self.validation_every and total % self.validation_every < n:
+                    val = self.validation()
+                    self.history.append({"stage": "global_val", "iter": total,
+                                         **{k: v for k, v in val.items()
+                                            if isinstance(v, (int, float))}})
+                if total % 1000 < n:
+                    self._flush_history()
         self._flush_history()
 
     def _pose_ba_pass(self, total: int):

@@ -29,6 +29,7 @@ from ..models.gaussians import PARAM_NAMES, GaussianField
 from ..ops.raster_cuda import GRAD_SUMS
 from ..ops.render import DEFAULT_MAX_INSTANCES, render
 from ..parallel.sharded import render_sharded_full
+from ..utils.profiling import span
 from . import losses
 from .densify import (DensifyConfig, add_render_stats, densify_and_prune,
                       reset_opacity, split_noise)
@@ -303,112 +304,127 @@ def mapping_chunk(state: MappingState, colors_all, monodeps_all, w2c_all,
     kf_views = []
 
     for it_idx, cur_t in enumerate(cur_ts):
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in field.param_dict().items()}
-        probe = torch.zeros(field.capacity, 2, device=dev,
-                            requires_grad=True)
-        sh = torch.cat([params["sh_dc"], params["sh_rest"]], dim=1)
-        period = amortize and it_idx % cfg.rebin_every == 0
+        with span("map.iter", request=iteration + 1):
+            params = {k: v.detach().requires_grad_(True)
+                      for k, v in field.param_dict().items()}
+            probe = torch.zeros(field.capacity, 2, device=dev,
+                                requires_grad=True)
+            sh = torch.cat([params["sh_dc"], params["sh_rest"]], dim=1)
+            period = amortize and it_idx % cfg.rebin_every == 0
 
-        def view(t_idx, probe_t, bins_c, rebin):
-            out = _render(mesh, params["means"], params["quats"],
-                          params["log_scales"], params["logit_opacity"], sh,
-                          w2c_all[t_idx], cam, active=field.active,
-                          probe2d=probe_t, sh_degree=sh_degree,
-                          max_instances=cfg.instance_cap, gs_grad=True,
-                          cam_grad=False, bins=bins_c, rebin=rebin,
-                          grad_sum=cfg.grad_sum)
-            rgb = cfg.w_rgb_mapping * losses.rgb_loss(out["render"],
-                                                      colors_all[t_idx])
-            mono = monodeps_all[t_idx]
-            pear = cfg.w_pearson * losses.pearson_depth_loss(
-                mono, out["render_dep"])
-            if cfg.w_local_pearson:
-                x0, y0 = losses.local_pearson_boxes(H, W, gen, device=dev)
-                lpear = cfg.w_local_pearson * losses.local_pearson_loss(
-                    mono, out["render_dep"], x0, y0)
-            else:
-                lpear = torch.zeros((), device=dev)
-            return rgb + pear + lpear, out, torch.stack([rgb, pear, lpear])
+            def view(t_idx, probe_t, bins_c, rebin):
+                out = _render(mesh, params["means"], params["quats"],
+                              params["log_scales"], params["logit_opacity"],
+                              sh, w2c_all[t_idx], cam, active=field.active,
+                              probe2d=probe_t, sh_degree=sh_degree,
+                              max_instances=cfg.instance_cap, gs_grad=True,
+                              cam_grad=False, bins=bins_c, rebin=rebin,
+                              grad_sum=cfg.grad_sum)
+                with span("loss"):
+                    rgb = cfg.w_rgb_mapping * losses.rgb_loss(
+                        out["render"], colors_all[t_idx])
+                    mono = monodeps_all[t_idx]
+                    pear = cfg.w_pearson * losses.pearson_depth_loss(
+                        mono, out["render_dep"])
+                    if cfg.w_local_pearson:
+                        x0, y0 = losses.local_pearson_boxes(H, W, gen,
+                                                            device=dev)
+                        lpear = (cfg.w_local_pearson
+                                 * losses.local_pearson_loss(
+                                     mono, out["render_dep"], x0, y0))
+                    else:
+                        lpear = torch.zeros((), device=dev)
+                    return (rgb + pear + lpear, out,
+                            torch.stack([rgb, pear, lpear]))
 
-        rebin = (force or cur_t != prev_t or period) if amortize else None
-        if two_views:
-            kf_rebin = None
-            if overlap:
-                kf_t = _overlap_keyframe(monodeps_all, w2c_all, cur_t, kf,
-                                         cam, gen)
-            else:
-                if amortize:
-                    pos = kf_pos_seq[it_idx]
-                    kf_rebin = force or pos != prev_kf or period
-                    prev_kf = pos
+            rebin = (force or cur_t != prev_t or period) if amortize else None
+            if two_views:
+                kf_rebin = None
+                if overlap:
+                    kf_t = _overlap_keyframe(monodeps_all, w2c_all, cur_t, kf,
+                                             cam, gen)
                 else:
-                    pos = int(torch.randint(0, len(kf), (), generator=gen))
-                kf_t = kf[pos]
-            kf_views.append(kf_t)
-            l0, stats_out, _ = view(kf_t, probe, kf_bins, kf_rebin)
-            l1, cur_out, terms_t = view(cur_t, None, bins, rebin)
-            kf_bins = stats_out.get("bins")
-            loss_t = l0 + l1
-        else:
-            loss_t, cur_out, terms_t = view(cur_t, probe, bins, rebin)
-            stats_out = cur_out
-        bins = cur_out.get("bins")
-        prev_t = cur_t
-        names = list(params)
-        grads = torch.autograd.grad(loss_t, [params[k] for k in names]
-                                    + [probe])
-        pgrads = dict(zip(names, grads[:-1]))
-        probe_grad = grads[-1]
-        iteration += 1
+                    if amortize:
+                        pos = kf_pos_seq[it_idx]
+                        kf_rebin = force or pos != prev_kf or period
+                        prev_kf = pos
+                    else:
+                        pos = int(torch.randint(0, len(kf), (), generator=gen))
+                    kf_t = kf[pos]
+                kf_views.append(kf_t)
+                l0, stats_out, _ = view(kf_t, probe, kf_bins, kf_rebin)
+                l1, cur_out, terms_t = view(cur_t, None, bins, rebin)
+                kf_bins = stats_out.get("bins")
+                loss_t = l0 + l1
+            else:
+                loss_t, cur_out, terms_t = view(cur_t, probe, bins, rebin)
+                stats_out = cur_out
+            bins = cur_out.get("bins")
+            prev_t = cur_t
+            names = list(params)
+            with span("backward"):
+                grads = torch.autograd.grad(loss_t, [params[k] for k in names]
+                                            + [probe])
+            with span("update"):
+                pgrads = dict(zip(names, grads[:-1]))
+                probe_grad = grads[-1]
+                iteration += 1
 
-        # NaN guard with per-group counts (where numerical trouble starts)
-        nf = {k: _isfinite_count(pgrads[k]) for k in names}
-        nf["probe2d"] = _isfinite_count(probe_grad)
-        nf_iter = sum(nf.values())
-        for k in _GROUPS:
-            nf_total[k] = nf_total[k] + nf[k]
-        first_nf = torch.where((first_nf == n_it) & (nf_iter > 0),
-                               torch.tensor(it_idx, device=dev), first_nf)
-        pgrads = {k: _finite(g) for k, g in pgrads.items()}
-        probe_grad = _finite(probe_grad)
+                # NaN guard with per-group counts (where numerical trouble
+                # starts)
+                nf = {k: _isfinite_count(pgrads[k]) for k in names}
+                nf["probe2d"] = _isfinite_count(probe_grad)
+                nf_iter = sum(nf.values())
+                for k in _GROUPS:
+                    nf_total[k] = nf_total[k] + nf[k]
+                first_nf = torch.where((first_nf == n_it) & (nf_iter > 0),
+                                       torch.tensor(it_idx, device=dev),
+                                       first_nf)
+                pgrads = {k: _finite(g) for k, g in pgrads.items()}
+                probe_grad = _finite(probe_grad)
 
-        field = add_render_stats(field, probe_grad, stats_out["radii"],
-                                 stats_out["visibility"],
-                                 grad_scale=ndc_scale)
-        upd, opt = adam_update(pgrads, opt, cfg.mapping_lrs(iteration, dev))
-        field = field.replace(**apply_updates(
-            {k: v.detach() for k, v in params.items()}, upd))
+                field = add_render_stats(field, probe_grad,
+                                         stats_out["radii"],
+                                         stats_out["visibility"],
+                                         grad_scale=ndc_scale)
+                upd, opt = adam_update(pgrads, opt,
+                                       cfg.mapping_lrs(iteration, dev))
+                field = field.replace(**apply_updates(
+                    {k: v.detach() for k, v in params.items()}, upd))
 
-        force = False
-        if densify_enabled:
-            if (iteration % cfg.densify_interval == 0
-                    and iteration < cfg.densify_until):
-                noise = split_noise(field.capacity, gen, dev)
-                field, opt, ds = densify_and_prune(
-                    field, opt, noise, cfg.densify,
-                    use_screen_size=iteration > cfg.size_threshold_from)
-                for k in _DENSIFY_KEYS:
-                    dens_total[k] = dens_total[k] + getattr(ds, k)
-                n_densify += 1
-                force = True     # a slot may now hold another Gaussian
-            if iteration % cfg.opacity_reset_interval == 0:
-                field, opt = reset_opacity(field, opt)
-                n_reset += 1
-                force = True     # grouped in, as in JAX
+                force = False
+                if densify_enabled:
+                    if (iteration % cfg.densify_interval == 0
+                            and iteration < cfg.densify_until):
+                        noise = split_noise(field.capacity, gen, dev)
+                        field, opt, ds = densify_and_prune(
+                            field, opt, noise, cfg.densify,
+                            use_screen_size=(iteration
+                                             > cfg.size_threshold_from))
+                        for k in _DENSIFY_KEYS:
+                            dens_total[k] = dens_total[k] + getattr(ds, k)
+                        n_densify += 1
+                        # a slot may now hold another Gaussian
+                        force = True
+                    if iteration % cfg.opacity_reset_interval == 0:
+                        field, opt = reset_opacity(field, opt)
+                        n_reset += 1
+                        force = True     # grouped in, as in JAX
 
-        # prediction caches, written in place (the JAX package rebuilds them)
-        with torch.no_grad():
-            pred_depths[cur_t] = cur_out["render_dep"].to(pred_depths.dtype)
-            pred_colors[cur_t] = torch.clamp(cur_out["render"], 0.0, 1.0
-                                             ).to(pred_colors.dtype)
-        for o in (stats_out, cur_out):      # the same dict in one-view
-            overflow_max = torch.maximum(overflow_max,
-                                         o["overflow"].to(torch.float32))
-        inst_max = torch.maximum(inst_max, cur_out["num_instances"].to(
-            torch.float32))
-        loss = loss_t.detach()
-        terms = terms_t.detach()
+                # prediction caches, written in place (the JAX package
+                # rebuilds them)
+                with torch.no_grad():
+                    pred_depths[cur_t] = cur_out["render_dep"].to(
+                        pred_depths.dtype)
+                    pred_colors[cur_t] = torch.clamp(
+                        cur_out["render"], 0.0, 1.0).to(pred_colors.dtype)
+                for o in (stats_out, cur_out):    # the same dict in one-view
+                    overflow_max = torch.maximum(
+                        overflow_max, o["overflow"].to(torch.float32))
+                inst_max = torch.maximum(inst_max, cur_out[
+                    "num_instances"].to(torch.float32))
+                loss = loss_t.detach()
+                terms = terms_t.detach()
 
     state = MappingState(field=field, opt=opt, iteration=iteration,
                          generator=gen, pred_depths=pred_depths,

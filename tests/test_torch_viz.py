@@ -15,6 +15,7 @@ viewer hook, against the JAX package's.
   global chunk; without one, no ``StepTimer`` stop (so no host sync).
 """
 
+import json
 import os
 
 import jax.numpy as jnp
@@ -247,8 +248,8 @@ def test_viewer_pause_and_report(fields, tmp_path):
 
 def test_step_timer_and_hooks(tmp_path, monkeypatch):
     """StepTimer counts the JAX timer's rays and, on a CPU tensor, does not
-    touch CUDA; trace writes a chrome trace; enable_nan_debugging is
-    autograd's anomaly mode."""
+    touch CUDA; trace writes a chrome trace with the spans recorded
+    meanwhile on its clock."""
     def no_cuda(*a):
         raise AssertionError("synchronized on the CPU")
     monkeypatch.setattr(torch.cuda, "synchronize", no_cuda)
@@ -258,14 +259,18 @@ def test_step_timer_and_hooks(tmp_path, monkeypatch):
     dt = t.stop(sync_on=torch.ones(2))
     assert dt >= 0 and t.rays_per_sec > 0
     with profiling.trace(str(tmp_path / "tr")):
-        torch.ones(8).sum()
-    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
-    try:
-        profiling.enable_nan_debugging()
-        assert torch.is_anomaly_enabled()
-    finally:
-        profiling.enable_nan_debugging(False)
-    assert not torch.is_anomaly_enabled()
+        with profiling.span("sum", request=5):
+            torch.ones(8).sum()
+    assert not profiling.SPANS.on
+    doc = json.loads((tmp_path / "tr" / "trace.json").read_text())
+    (sp,) = [e for e in doc["traceEvents"] if e.get("cat") == "span"]
+    ops = [e for e in doc["traceEvents"] if e.get("name") == "aten::sum"]
+    assert sp["name"] == "sum" and sp["args"]["request"] == 5 and ops
+    # the span on the profiler's clock and its thread's row
+    for op in ops:
+        assert sp["tid"] == op["tid"] and sp["pid"] == op["pid"]
+        assert sp["ts"] <= op["ts"]
+        assert op["ts"] + op["dur"] <= sp["ts"] + sp["dur"]
 
 
 class _Spy:
