@@ -12,6 +12,17 @@ Phases, each printing one JSON line with its seconds:
      four checks against the float64 reference (ssim(x, x) = 1, the mean
      within 1e-4, the smallest denominator > 0, |ssim_map| <= 1 + 1e-3),
      and ``ops/ssim.ssim`` refusing to run with ``allow_tf32`` set;
+  3b. project — the projection's kernels (``ops/project_cuda.py``,
+     ``csrc/project.cu``) against their plain version on bench.py's scene
+     recipe at the benchmark's 131,072 Gaussians (SH 3, 1280x1024, the last
+     eighth unused zero-filled slots, a pose that is no identity): radius,
+     tile rect and tiles touched bit-equal, the float outputs within
+     PROJECT_FWD_TOL and every gradient (the Gaussians', the pose's, the
+     probe's; and the pose's alone, as tracking asks) within
+     PROJECT_GRAD_TOL of autograd through the plain version, both kernels
+     bitwise equal over two launches, a render and its backward launching
+     each once; device ms in a CUDA graph against the byte bound, stream
+     and plain ms;
   4. parity  — K1, K2 (which stores each slot's gradients as one row of a
      sum-ordered (M, 10) buffer, row ``sum_rank[slot]``) and the
      per-Gaussian sum after K2 (``gaussian_grad_sum``, bitwise its plain
@@ -150,8 +161,8 @@ Phases, each printing one JSON line with its seconds:
      every rank just before (a) and read just after (c), before the
      references;
  17. kernels — the launches by path, then one JSON line with every
-     kernel's numbers (K1 / K2 / the sum / the prefix reduction from the
-     slice_frame0 layout,
+     kernel's numbers (the projection's from phase 3b; K1 / K2 / the sum /
+     the prefix reduction from the slice_frame0 layout,
      their launches summed over every path, the ranks' added for
      parallel; K3 from the bench scene);
 then, last, {"ok": true, "device": {...}}.
@@ -243,14 +254,21 @@ MAIN_PATH_REPLACES = ("freesurgs_tpu/ops/raster_pallas.py:307",
 PREFIX_REPLACES = "freesurgs_tpu/ops/raster_pallas.py:737"
 
 
-def launch_counts(fwd: int, bwd: int, prefix: bool = False
-                  ) -> dict[str, int]:
-    """The compositing kernels' launches for ``fwd`` forward and ``bwd``
-    backward renders: each backward launches K2, then the per-Gaussian
-    sum, or with ``prefix`` (grad_sum="prefix") the prefix reduction."""
+def launch_counts(fwd: int, bwd: int, prefix: bool = False,
+                  projections: int = 0, poses: int = 0) -> dict[str, int]:
+    """The kernels' launches for ``fwd`` forward and ``bwd`` backward
+    renders and ``projections`` projections outside a render
+    (``render_records``, ``cli.stage_timing``'s first stages): each render
+    projects once, each backward launches the projection's backward, K2,
+    then the per-Gaussian sum, or with ``prefix`` (grad_sum="prefix") the
+    prefix reduction; ``poses`` of the backwards take the pose's gradient
+    (tracking, pose BA, pose refinement), each with the projection's pose
+    reduction."""
     return {"composite_fwd": fwd, "composite_bwd": bwd,
             "gaussian_grad_sum": 0 if prefix else bwd,
-            "gaussian_grad_prefix": bwd if prefix else 0}
+            "gaussian_grad_prefix": bwd if prefix else 0,
+            "project_fwd": fwd + projections, "project_bwd": bwd,
+            "project_pose": poses}
 
 
 def phase(name: str, t0: float, **kw) -> None:
@@ -716,6 +734,354 @@ def prefix_checks(dev, layout: str, H: int, W: int, cfg, feat, rect, bins,
             "bound_by": b_by, "max_abs_err": plain_err, "library_ms": lib_ms}
 
 
+PROJECT_N = 131_072          # the benchmark's map: 131,072 Gaussians
+# The projection kernels against their plain version on the card. The
+# forward's floats are the plain ops' arithmetic where it decides an integer
+# (radius, rect, tiles: bit-equal) and differ elsewhere only by the sum
+# order of |p|^2 and eval_sh's contraction: within PROJECT_FWD_TOL of each
+# field's largest magnitude. The gradients are autograd's chain summed in
+# another order (the CPU tests hold the same two within 1e-6 in float32):
+# within PROJECT_GRAD_TOL of each tensor's largest magnitude.
+PROJECT_FWD_TOL = 1e-5
+PROJECT_GRAD_TOL = 1e-5
+PROJECT_REPLACES = ("none: XLA fuses the JAX projection "
+                    "(freesurgs_tpu/ops/render.py:123-144)")
+# the checks' pose (quaternion, translation): no identity, so that every
+# product of mean_cam rounds
+PROJECT_POSE = ((0.995, 0.03, -0.06, 0.04), (0.04, -0.02, 0.05))
+# The edge scene, on the CPU in tests/test_torch_project_cuda.py and on the
+# card in project_edge_checks: a 56x40 camera, 240 slots (the last 24
+# unused), a pose, and the cases of the backward: name -> (the Gaussians
+# need a gradient, the pose does, a probe, an active mask)
+PROJECT_EDGE_CAM = dict(height=40, width=56, fx=50.0, fy=52.0, cx=28.0,
+                        cy=20.0)
+PROJECT_EDGE_N, PROJECT_EDGE_UNUSED = 240, 24
+PROJECT_EDGE_POSE = ((0.98, 0.05, -0.1, 0.08), (0.05, -0.03, 0.1))
+PROJECT_EDGE_CASES = {"mapping": (True, False, True, True),
+                      "all": (True, True, True, False),
+                      "tracking": (False, True, False, True)}
+
+
+def project_dc_at_tie():
+    """A DC coefficient x (float32) with fl(C0 x) = -0.5: the rgb
+    channel's value before the clamp is then exactly 0 when its other
+    coefficients are 0."""
+    import numpy as np
+    from freesurgs_tpu_torch.core.sh import C0
+    x = np.float32(-0.5 / C0)
+    for _ in range(64):
+        p = np.float32(C0) * x
+        if p == np.float32(-0.5):
+            return x
+        x = np.nextafter(x, np.float32(-np.inf if p > -0.5 else np.inf),
+                         dtype=np.float32)
+    raise AssertionError("no tie found")
+
+
+def project_edge_scene(sh_degree: int, seed: int = 0, tie: bool = True):
+    """PROJECT_EDGE_N slots as numpy arrays: live Gaussians in front of the
+    camera, some behind the near cull, some far off-axis (the EWA clamp),
+    inactive ones, and PROJECT_EDGE_UNUSED zero-filled unused slots at the
+    end (zero means, identity quats); with ``tie`` the first Gaussian's red
+    channel sits on the rgb clamp's tie. Returns ((means, quats,
+    log_scales, logit_opacity, sh), active, probe, cotangents of mean2d,
+    conic, rgbz and opacity, zero on the unused slots)."""
+    import numpy as np
+    n, rng = PROJECT_EDGE_N, np.random.default_rng(seed)
+    k = max(16, (sh_degree + 1) ** 2)
+    n_live = n - PROJECT_EDGE_UNUSED
+    means = np.zeros((n, 3), np.float32)
+    means[:n_live] = np.stack([rng.uniform(-0.8, 0.8, n_live),
+                               rng.uniform(-0.6, 0.6, n_live),
+                               rng.uniform(0.1, 3.0, n_live)], -1)
+    means[:20, 0] *= 6.0                  # x / z beyond 1.3 tan(fov)
+    means[20:40, 2] = rng.uniform(-0.5, 0.25, 20)   # some z <= 0.2
+    quats = np.zeros((n, 4), np.float32)
+    quats[:, 0] = 1.0
+    quats[:n_live] = rng.normal(size=(n_live, 4))
+    ls = np.zeros((n, 3), np.float32)
+    ls[:n_live] = np.log(rng.uniform(0.02, 0.2, (n_live, 3)))
+    lo = np.zeros(n, np.float32)
+    lo[:n_live] = rng.uniform(-3, 3, n_live)
+    sh = np.zeros((n, k, 3), np.float32)
+    sh[:n_live] = rng.normal(size=(n_live, k, 3)) * 0.4
+    if tie:
+        sh[0, :, 0] = 0.0
+        sh[0, 0, 0] = project_dc_at_tie()
+    active = (rng.uniform(size=n) > 0.1) & (np.arange(n) < n_live)
+    probe = np.zeros((n, 2), np.float32)
+    cot = [rng.normal(size=s).astype(np.float32)
+           for s in ((n, 2), (n, 3), (n, 4), (n,))]
+    for c in cot:           # the rasterizer sends unused slots nothing
+        c[n_live:] = 0.0
+    return (means, quats, ls, lo, sh), active, probe, cot
+
+
+def project_edge_checks(dev) -> dict:
+    """``project_edge_scene`` on the card at SH degrees 0-4 (rows of 16
+    coefficients, read 16 bytes at a time, below degree 4; of 25, read 4
+    bytes at a time, at 4): per degree, the kernels' radius, rect and
+    tiles against ``raster_inputs_plain``'s (mismatches), the float
+    outputs' largest error, whether the plain rgb sits on the tie, and, in
+    each of PROJECT_EDGE_CASES, every gradient's error against autograd
+    through the plain version, whether all are finite, and whether the
+    unused slots' are exactly zero. Errors are normalized by each tensor's
+    largest magnitude, as in the CPU tests (the pose's quaternion and
+    translation are a tensor each)."""
+    import torch
+    from freesurgs_tpu_torch.core.camera import Camera
+    from freesurgs_tpu_torch.core.sh import eval_sh
+    from freesurgs_tpu_torch.core.transforms import build_w2c
+    from freesurgs_tpu_torch.ops import project_cuda as pc
+
+    cam = Camera(**PROJECT_EDGE_CAM)
+    n_live = PROJECT_EDGE_N - PROJECT_EDGE_UNUSED
+    q0, t0 = (torch.tensor(v, device=dev) for v in PROJECT_EDGE_POSE)
+
+    def err(got, want):
+        scale = max(float(want.abs().max()), 1e-12)
+        return float((got - want).abs().max()) / scale
+
+    def grads(fn, ins, act, cot, deg, gs, pose, use_probe, use_active):
+        leaves = [t.clone().requires_grad_(gs) for t in ins]
+        q = q0.clone().requires_grad_(pose)
+        t = t0.clone().requires_grad_(pose)
+        p = (torch.zeros(PROJECT_EDGE_N, 2, device=dev, requires_grad=True)
+             if use_probe else None)
+        proj, rgbz, op = fn(*leaves, build_w2c(q, t), cam,
+                            act if use_active else None, p, deg)
+        visf = (proj.radius > 0).to(torch.float32)[:, None]
+        loss = ((proj.mean2d * cot[0]).sum()
+                + (proj.conic * cot[1] * visf).sum()
+                + (rgbz * cot[2]).sum() + (op * cot[3]).sum())
+        return torch.autograd.grad(
+            loss, (leaves if gs else []) + ([q, t] if pose else [])
+            + ([p] if use_probe else []))
+
+    rows = {}
+    for deg in range(5):
+        arrays, active, probe, cot = project_edge_scene(deg, seed=deg + 1)
+        ins = [torch.tensor(a, device=dev) for a in arrays]
+        act = torch.tensor(active, device=dev)
+        cot = [torch.tensor(c, device=dev) for c in cot]
+        w2c = build_w2c(q0, t0)
+        prb = torch.tensor(probe, device=dev) + 0.25
+        with torch.no_grad():
+            want, want_rgbz, want_op = pc.raster_inputs_plain(
+                *ins, w2c, cam, act, prb, deg)
+            m2, conic, rgbz, op, radius, rect, tiles = pc.project_fwd(
+                *ins, w2c, cam, act, prb, deg)
+            dirs = ins[0][:1] / torch.linalg.norm(ins[0][:1])
+            v0 = float(eval_sh(deg, ins[4][:1], dirs)[0, 0] + 0.5)
+        vis = want.radius > 0
+        row = {"visible": int(vis.sum()),
+               "int_mismatches": int(
+                   (radius != want.radius).sum()
+                   + (rect != want.tile_rect).any(1).sum()
+                   + (tiles != want.tiles_touched).sum()),
+               "fwd_err": max(err(m2, want.mean2d),
+                              err(conic[vis], want.conic[vis]),
+                              err(rgbz, want_rgbz), err(op, want_op)),
+               "tie": v0 == 0.0 and float(rgbz[0, 0]) == 0.0,
+               "grad_err": {}, "finite": True, "unused_zero": True}
+
+        for case, flags in PROJECT_EDGE_CASES.items():
+            got, ref = (grads(fn, ins, act, cot, deg, *flags) for fn in
+                        (pc.raster_inputs, pc.raster_inputs_plain))
+            row["grad_err"][case] = max(err(a, b) for a, b in zip(got, ref))
+            row["finite"] &= all(bool(torch.isfinite(g).all()) for g in got)
+            if flags[0]:
+                row["unused_zero"] &= all(bool((g[n_live:] == 0).all())
+                                          for g in got[:5])
+        rows[deg] = row
+    return rows
+
+
+def project_scene(dev):
+    """bench.py's scene recipe at the benchmark's 131,072 Gaussians (SH 3,
+    1280x1024), its last eighth unused zero-filled slots (zero means,
+    identity quaternions), as GaussianField pads them: (cam, params,
+    active)."""
+    import torch
+    from freesurgs_tpu_torch.bench import bench_scene
+    cam, params = bench_scene(dev, n=PROJECT_N)
+    unused = PROJECT_N // 8
+    for p in params:
+        p[-unused:] = 0.0
+    params[1][-unused:, 0] = 1.0
+    active = torch.arange(PROJECT_N, device=dev) < PROJECT_N - unused
+    return cam, params, active
+
+
+def project_checks(dev) -> dict:
+    """``ops/project_cuda.py``'s kernels against ``raster_inputs_plain`` on
+    ``project_scene``: radius, rect and tiles bit-equal, the float outputs
+    within PROJECT_FWD_TOL and every gradient (the Gaussians', the pose's
+    through build_w2c, the probe's) within PROJECT_GRAD_TOL of autograd
+    through the plain version; the pose alone (tracking) likewise; both
+    kernels launched twice bitwise equal; a mapping ``render`` with its
+    backward launching each kernel once, a tracking one the pose's
+    reduction too; ``project_edge_checks`` held to the same gates; device
+    ms (CUDA graph) against the byte bound, stream and plain ms. Prints
+    ``project`` and returns its row."""
+    import torch
+    from freesurgs_tpu_torch.core.transforms import build_w2c
+    from freesurgs_tpu_torch.ops import project_cuda as pc
+    from freesurgs_tpu_torch.ops import raster_cuda as rc
+    from freesurgs_tpu_torch.ops.raster_ablate import cuda_graph_ms, cuda_ms
+    from freesurgs_tpu_torch.ops.render import render
+
+    t0 = time.time()
+    cam, params, active = project_scene(dev)
+    n, deg = PROJECT_N, 3
+    q0, t0_ = (torch.tensor(v, device=dev) for v in PROJECT_POSE)
+    w2c = build_w2c(q0, t0_)
+    probe = torch.zeros(n, 2, device=dev)
+    with torch.no_grad():
+        want_p, want_rgbz, want_op = pc.raster_inputs_plain(
+            *params, w2c, cam, active, probe, deg)
+        got = pc.project_fwd(*params, w2c, cam, active, probe, deg)
+        again = pc.project_fwd(*params, w2c, cam, active, probe, deg)
+    mean2d, conic, rgbz, opac, radius, rect, tiles = got
+    vis = want_p.radius > 0
+    rect_mismatch = int((radius != want_p.radius).sum()
+                        + (rect != want_p.tile_rect).any(1).sum()
+                        + (tiles != want_p.tiles_touched).sum())
+
+    def rel(a, b, rows=None):
+        a, b = (a, b) if rows is None else (a[rows], b[rows])
+        a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+        return max(normalized_field_err(a, b))
+
+    fwd_err = {"mean2d": rel(mean2d, want_p.mean2d),
+               "conic": rel(conic, want_p.conic, vis),
+               "rgbz": rel(rgbz, want_rgbz), "opacity": rel(opac, want_op)}
+    pairs = {"mean2d": (mean2d, want_p.mean2d),
+             "conic": (conic[vis], want_p.conic[vis]),
+             "depth": (rgbz[:, 3], want_rgbz[:, 3]),
+             "rgb": (rgbz[:, :3], want_rgbz[:, :3]),
+             "opacity": (opac, want_op)}
+    bit_share = {k: float((a == b).float().mean())
+                 for k, (a, b) in pairs.items()}
+    fwd_repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+
+    # gradients: kernel vs autograd through the plain version
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cot = [torch.randn(s, generator=gen, device=dev)
+           for s in ((n, 2), (n, 3), (n, 4), (n,))]
+    for c in cot:
+        c[~active] = 0.0
+    visf = vis.to(torch.float32)[:, None]
+
+    def grads(fn, gs: bool, pose: bool):
+        leaves = [p.detach().requires_grad_(gs) for p in params]
+        q = q0.clone().requires_grad_(pose)
+        t = t0_.clone().requires_grad_(pose)
+        prb = probe.clone().requires_grad_(gs)
+        proj, rgbz_, op_ = fn(*leaves, build_w2c(q, t), cam, active, prb,
+                              deg)
+        loss = ((proj.mean2d * cot[0]).sum()
+                + (proj.conic * cot[1] * visf).sum()
+                + (rgbz_ * cot[2]).sum() + (op_ * cot[3]).sum())
+        want = (leaves + [prb] if gs else []) + ([q, t] if pose else [])
+        return torch.autograd.grad(loss, want)
+
+    names = ["means", "quats", "log_scales", "logit_opacity", "sh", "probe",
+             "pose_q", "pose_t"]
+    g_k = grads(pc.raster_inputs, True, True)
+    g_k2 = grads(pc.raster_inputs, True, True)
+    g_p = grads(pc.raster_inputs_plain, True, True)
+    grad_err = {k: grad_error(a, b) for k, a, b in zip(names, g_k, g_p)}
+    t_k = grads(pc.raster_inputs, False, True)
+    t_p = grads(pc.raster_inputs_plain, False, True)
+    track_err = {k: grad_error(a, b)
+                 for k, a, b in zip(names[-2:], t_k, t_p)}
+    bwd_repeat = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
+
+    # launches of one render and its backward: mapping's (the Gaussians'
+    # gradients) and tracking's (the pose's alone)
+    keys = ("project_fwd", "project_bwd", "project_pose", "composite_fwd",
+            "composite_bwd")
+    leaves = [p.detach().requires_grad_(True) for p in params]
+    rc.reset_launches()
+    out = render(*leaves, w2c, cam, active=active, sh_degree=deg,
+                 cam_grad=False)
+    torch.autograd.grad(out["render"].sum(), leaves)
+    torch.cuda.synchronize()
+    launches = {k: rc.LAUNCHES[k] for k in keys}
+    q = q0.clone().requires_grad_(True)
+    t = t0_.clone().requires_grad_(True)
+    rc.reset_launches()
+    out = render(*params, build_w2c(q, t), cam, active=active, sh_degree=deg,
+                 gs_grad=False, cam_grad=True)
+    torch.autograd.grad(out["render"].sum(), (q, t))
+    torch.cuda.synchronize()
+    launches_pose = {k: rc.LAUNCHES[k] for k in keys}
+    rc.reset_launches()
+    edge = project_edge_checks(dev)
+
+    # times: device (CUDA graph), stream, plain; the byte bound
+    args = (*params, w2c, cam, active, probe, deg)
+    bwd_args = (*params, w2c, cam, deg, *cot)
+    ms_fwd = cuda_graph_ms(lambda: pc.project_fwd(*args), iters=20)
+    ms_bwd = cuda_graph_ms(lambda: pc.project_bwd(*bwd_args, pose=False),
+                           iters=20)
+    ms_bwd_pose = cuda_graph_ms(lambda: pc.project_bwd(*bwd_args, gs=False),
+                                iters=20)
+    stream_fwd = cuda_ms(lambda: pc.project_fwd(*args), iters=20)
+    stream_bwd = cuda_ms(lambda: pc.project_bwd(*bwd_args, pose=False),
+                         iters=20)
+    with torch.no_grad():
+        plain_fwd = cuda_ms(lambda: pc.raster_inputs_plain(*args), iters=5)
+    plain_fwd_bwd = cuda_ms(lambda: grads(pc.raster_inputs_plain, True,
+                                          False), iters=5)
+    k = params[4].shape[1]
+    ins = 12 + 16 + 12 + 4 + 12 * k          # means, quats, scales, logit, SH
+    fwd_bytes_ = n * (ins + 1 + 8 + 8 + 12 + 4 + 16 + 4 + 16 + 4)
+    bwd_bytes_ = n * (ins + 8 + 12 + 16 + 4 + ins)
+    fwd_bound, _ = bound(0, fwd_bytes_)
+    bwd_bound, _ = bound(0, bwd_bytes_)
+    row = {"gaussians": n, "sh_degree": deg, "visible": int(vis.sum()),
+           "rect_mismatches": rect_mismatch, "fwd_err": fwd_err,
+           "bit_equal_share": bit_share, "grad_err": grad_err,
+           "tracking_grad_err": track_err,
+           "bitwise_repeat": fwd_repeat and bwd_repeat,
+           "render_launches": launches,
+           "tracking_render_launches": launches_pose, "edge_scene": edge,
+           "fwd_ms": ms_fwd, "bwd_ms": ms_bwd, "bwd_pose_only_ms": ms_bwd_pose,
+           "fwd_stream_ms": stream_fwd, "bwd_stream_ms": stream_bwd,
+           "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+           "fwd_share_of_bound": fwd_bound / ms_fwd,
+           "bwd_share_of_bound": bwd_bound / ms_bwd,
+           "plain_fwd_ms": plain_fwd, "plain_fwd_bwd_ms": plain_fwd_bwd,
+           "bound_by": "bytes", "library_ms": None,
+           "library_note": "no single PyTorch call computes the projection"}
+    phase("project", t0, **row)
+    check(rect_mismatch == 0,
+          f"project: {rect_mismatch} radius / rect / tiles differ from plain")
+    check(all(v <= PROJECT_FWD_TOL for v in fwd_err.values()),
+          f"project forward: {fwd_err}")
+    check(all(v <= PROJECT_GRAD_TOL for v in
+              list(grad_err.values()) + list(track_err.values())),
+          f"project gradients: {grad_err} {track_err}")
+    check(fwd_repeat and bwd_repeat, "project: two launches differ")
+    check(launches == {"project_fwd": 1, "project_bwd": 1, "project_pose": 0,
+                       "composite_fwd": 1, "composite_bwd": 1},
+          f"project: a render's launches {launches}")
+    check(launches_pose == {"project_fwd": 1, "project_bwd": 1,
+                            "project_pose": 1, "composite_fwd": 1,
+                            "composite_bwd": 1},
+          f"project: a tracking render's launches {launches_pose}")
+    for d, e in edge.items():
+        check(e["int_mismatches"] == 0 and e["tie"],
+              f"project edge scene, SH {d}: {e}")
+        check(e["fwd_err"] <= PROJECT_FWD_TOL
+              and all(v <= PROJECT_GRAD_TOL for v in e["grad_err"].values())
+              and e["finite"] and e["unused_zero"],
+              f"project edge scene, SH {d}: {e}")
+    return row
+
+
 def run_prefix(dev, results) -> dict:
     """A Trainer with grad_sum="prefix" on the slice's scene: progressive
     SLAM, then PREFIX_GLOBAL global iterations. Launch counters reset just
@@ -752,7 +1118,8 @@ def run_prefix(dev, results) -> dict:
     exp_bwd += PREFIX_GLOBAL
     losses = [h["loss"] for h in tr.history if "loss" in h]
     phase("prefix", t0, run_seconds=seconds, launches=launches,
-          expected_launches=launch_counts(exp_fwd, exp_bwd, prefix=True),
+          expected_launches=launch_counts(exp_fwd, exp_bwd, prefix=True,
+                                          poses=tracking_renders(cfg, seq)),
           psnr_frame0_before=psnr_before,
           psnr_frame0_after_mapping=psnr_cached,
           global_losses=[h["loss"] for h in tr.history
@@ -760,7 +1127,8 @@ def run_prefix(dev, results) -> dict:
           active_gaussians=int(tr.field.num_active))
     check(all(math.isfinite(float(x)) for x in losses),
           f"prefix run: non-finite loss {losses}")
-    check(launches == launch_counts(exp_fwd, exp_bwd, prefix=True),
+    check(launches == launch_counts(exp_fwd, exp_bwd, prefix=True,
+                                    poses=tracking_renders(cfg, seq)),
           f"prefix run: launches {launches} != renders made "
           f"({exp_fwd}, {exp_bwd})")
     check(psnr_cached > psnr_before,
@@ -960,6 +1328,12 @@ def progressive_counts(cfg, seq) -> tuple[int, int, int]:
     return fwd, bwd, iters
 
 
+def tracking_renders(cfg, seq) -> int:
+    """The renders of ``progressive_run`` whose backward takes the pose's
+    gradient: tracking's, on every frame but 0."""
+    return (int(seq.colors.shape[0]) - 1) * cfg.tracking_iters
+
+
 def carried_bins(frames, it0: int, cfg) -> int:
     """Renders of one carried view of a mapping chunk that bin, by the
     rebin rule: force | a new frame | k % rebin_every == 0, with force
@@ -1143,7 +1517,8 @@ def run_slice(dev, results, ckpt_root: Path):
           psnr_frame0_end_of_run=psnr_end,
           global_losses=[h["loss"] for h in glob], overflow_max=overflow,
           launches=launches,
-          expected_launches=launch_counts(exp_fwd, exp_bwd),
+          expected_launches=launch_counts(exp_fwd, exp_bwd, projections=1,
+                                          poses=tracking_renders(cfg, seq)),
           binnings=bins, binnings_per_render=bins / exp_fwd,
           densify_events=densify_events, opacity_resets=resets,
           sh_degree=tr.active_sh_degree,
@@ -1175,7 +1550,8 @@ def run_slice(dev, results, ckpt_root: Path):
           "the restored Trainer differs from the saved one")
     check(done_before == 40 and fresh._global_done == 50,
           f"global counter {done_before} -> {fresh._global_done}")
-    check(launches == launch_counts(exp_fwd, exp_bwd),
+    check(launches == launch_counts(exp_fwd, exp_bwd, projections=1,
+                                    poses=tracking_renders(cfg, seq)),
           f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
     # every render bins, and so does render_records
     check(bins == exp_fwd + 1, f"binnings {bins} != {exp_fwd} renders + 1")
@@ -1415,6 +1791,7 @@ def run_reuse(dev, slice_summary: dict):
     n_ba = 2 * len(refined) * tr.pose_ba_iters
     exp_fwd += renders + 40 + n_ba
     exp_bwd += 40 + n_ba
+    exp_poses = tracking_renders(cfg, seq) + n_ba
     prog = [h for h in tr.history if h["stage"] == "progressive"]
     exp_bins = renders + n_ba
     it = 0
@@ -1460,7 +1837,7 @@ def run_reuse(dev, slice_summary: dict):
         global_seconds=global_seconds, global_iterations=40,
         global_iterations_per_s_with_pose_ba=40 / global_seconds,
         launches=launches,
-        expected_launches=launch_counts(exp_fwd, exp_bwd),
+        expected_launches=launch_counts(exp_fwd, exp_bwd, poses=exp_poses),
         binnings=bins, expected_binnings=exp_bins,
         binnings_per_render=bins / exp_fwd,
         keyframe_views={h["frame"]: h["keyframe_views"] for h in prog
@@ -1476,7 +1853,7 @@ def run_reuse(dev, slice_summary: dict):
         slice_same_call=slice_summary)
     check(all(math.isfinite(x) for x in losses + [psnr_end]),
           f"non-finite loss or PSNR {losses} {psnr_end}")
-    check(launches == launch_counts(exp_fwd, exp_bwd),
+    check(launches == launch_counts(exp_fwd, exp_bwd, poses=exp_poses),
           f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
     check(bins == exp_bins, f"binnings {bins} != the schedule's {exp_bins}")
     check(psnr_cached > psnr_before,
@@ -1539,12 +1916,14 @@ def run_overlap(dev):
           psnr_frame0_before=psnr_before,
           psnr_frame0_after_mapping=psnr_cached,
           launches=launches,
-          expected_launches=launch_counts(exp_fwd, exp_bwd),
+          expected_launches=launch_counts(exp_fwd, exp_bwd,
+                                          poses=tracking_renders(cfg, seq)),
           binnings=bins, overflow_max=overflow)
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(psnr_cached > psnr_before,
           f"frame-0 PSNR did not improve: {psnr_before} -> {psnr_cached}")
-    check(launches == launch_counts(exp_fwd, exp_bwd),
+    check(launches == launch_counts(exp_fwd, exp_bwd,
+                                    poses=tracking_renders(cfg, seq)),
           f"launches {launches} != renders made ({exp_fwd}, {exp_bwd})")
     check(bins == exp_fwd, f"binnings {bins} != renders {exp_fwd}")
     check(overflow == 0, f"instance overflow {overflow}")
@@ -1790,7 +2169,8 @@ def run_raw(dev, smi: str) -> dict:
     runs = [raw_training_run(dev, seq, cfg) for _ in range(2)]
     tr = runs[0]["trainer"]
     exp_fwd, exp_bwd, iters = progressive_counts(cfg, seq)
-    exp = launch_counts(exp_fwd + 1, exp_bwd)
+    exp = launch_counts(exp_fwd + 1, exp_bwd,
+                        poses=tracking_renders(cfg, seq))
     prog = [h for h in tr.history if h["stage"] == "progressive"]
     losses = [float(h[k]) for h in prog
               for k in ("loss", "rgb_loss", "flow_loss") if k in h]
@@ -2043,7 +2423,8 @@ def run_cli(dev, smi: str, slice_summary: dict) -> dict:
         compare = [t for t in cached.i_train if t % 25 == 0]
         exp = launch_counts(exp_fwd + cfg.global_iters + n_test
                             + len(compare) + n_test,
-                            exp_bwd + cfg.global_iters)
+                            exp_bwd + cfg.global_iters,
+                            poses=tracking_renders(cfg, cached))
         check(launches["train"] == exp,
               f"cli.train launches {launches['train']} != renders {exp}")
         panels = sorted(p.name for p in (out / "panels").glob("*.png"))
@@ -2247,7 +2628,8 @@ def run_fullres(dev, smi: str, tmp: Path) -> dict:
     n_val = len(seq.i_test) + len(train[::8])
     n_ba = 25 * len([t for t in train if t != 0])
     exp = launch_counts(exp_fwd + FULLRES_GLOBAL + 2 * n_val + n_ba,
-                        exp_bwd + FULLRES_GLOBAL + n_ba)
+                        exp_bwd + FULLRES_GLOBAL + n_ba,
+                        poses=tracking_renders(cfg, seq) + n_ba)
     check(launches["fullres"] == exp,
           f"run_config34 launches {launches['fullres']} != renders {exp}")
 
@@ -2353,7 +2735,8 @@ def run_tpu_rows(dev, smi: str, tmp: Path) -> dict:
                       depth_prior="metric")
     fwd, bwd, _ = progressive_counts(TrainConfig(), seq)
     n_val = len(seq.i_test) + len([int(t) for t in seq.i_train][::8])
-    want = launch_counts(fwd + n_val, bwd)
+    want = launch_counts(fwd + n_val, bwd,
+                         poses=tracking_renders(TrainConfig(), seq))
     check(launches["tpu_rows"] == want,
           f"tpu_rows launches {launches['tpu_rows']} != renders {want}")
 
@@ -2651,7 +3034,10 @@ def run_bench(dev, smi: str, tmp: Path) -> dict:
         torch.cuda.synchronize()
         steps[name] = time.time() - t1
         launches[name] = dict(rc.LAUNCHES)
-        want = launch_counts(diag["renders"]["fwd"], diag["renders"]["bwd"])
+        bwd = diag["renders"]["bwd"]
+        want = launch_counts(diag["renders"]["fwd"], bwd,
+                             projections=diag.get("projections", 0),
+                             poses=bwd if name == "eval_ckpt" else 0)
         check(launches[name] == want,
               f"{name} launches {launches[name]} != renders {want}")
         check(line["device"] == smi, f"{name} device {line['device']}")
@@ -2837,7 +3223,7 @@ def parallel_checks(rank: int, dev) -> dict:
     # ---- the main path, counters reset just before it
     rc.reset_launches()
     t_run = time.time()
-    renders = {"fwd": 0, "bwd": 0}
+    renders = {"fwd": 0, "bwd": 0, "pose": 0}
     sharded = {}
     for name, sp in (("replicated", False), ("shard_projection", True)):
         sharded[name] = parallel_grads(
@@ -2847,6 +3233,7 @@ def parallel_checks(rank: int, dev) -> dict:
             max_instances=cfg.instance_cap)
     renders["fwd"] += 2
     renders["bwd"] += 2
+    renders["pose"] += 2
     launches_a = dict(rc.LAUNCHES)
     # (e) the same renders with grad_sum="prefix": each band's prefix
     # reduction, the bands' sums all-reduced
@@ -2857,7 +3244,7 @@ def parallel_checks(rank: int, dev) -> dict:
                               shard_projection=sp, grad_sum="prefix"),
             field0, scene.gt_w2c[0], cam, weights,
             max_instances=cfg.instance_cap)
-    renders_p = {"fwd": 2, "bwd": 2}
+    renders_p = {"fwd": 2, "bwd": 2, "pose": 2}
     launches_e = {k: rc.LAUNCHES[k] - launches_a[k] for k in rc.LAUNCHES}
 
     st0 = dataclasses.replace(
@@ -2876,6 +3263,7 @@ def parallel_checks(rank: int, dev) -> dict:
         mesh=mesh)
     renders["fwd"] += PARALLEL_MAP_ITERS + PARALLEL_TRACK_ITERS
     renders["bwd"] += PARALLEL_MAP_ITERS + PARALLEL_TRACK_ITERS
+    renders["pose"] += PARALLEL_TRACK_ITERS
 
     psnr_before = psnr(tr.render_frame(0)["render"], seq.colors[0])
     t1_ = time.time()
@@ -2887,6 +3275,7 @@ def parallel_checks(rank: int, dev) -> dict:
     fwd, bwd, _ = progressive_counts(cfg, seq)
     renders["fwd"] += 1 + fwd + PARALLEL_GLOBAL
     renders["bwd"] += bwd + PARALLEL_GLOBAL
+    renders["pose"] += tracking_renders(cfg, seq)
 
     psnr_p_before = psnr(tr_p.render_frame(0)["render"], seq.colors[0])
     tr_p.progressive_run()
@@ -2894,6 +3283,7 @@ def parallel_checks(rank: int, dev) -> dict:
     fwd_p, bwd_p, _ = progressive_counts(cfg_p, seq)
     renders_p["fwd"] += 1 + fwd_p
     renders_p["bwd"] += bwd_p
+    renders_p["pose"] += tracking_renders(cfg_p, seq)
 
     ms_state, ms_aux = multiseq_mapping_chunk(
         mesh_d, shard_states(mesh_d, stack_states(seq_states)),
@@ -2912,9 +3302,9 @@ def parallel_checks(rank: int, dev) -> dict:
            "launches_a": launches_a,
            "expected_launches": {
                k: v + launch_counts(renders_p["fwd"], renders_p["bwd"],
-                                    prefix=True)[k]
-               for k, v in launch_counts(renders["fwd"],
-                                         renders["bwd"]).items()},
+                                    prefix=True, poses=renders_p["pose"])[k]
+               for k, v in launch_counts(renders["fwd"], renders["bwd"],
+                                         poses=renders["pose"]).items()},
            "launches_e": launches_e,
            "prefix_psnr_frame0_before": psnr_p_before,
            "prefix_psnr_frame0_after_mapping": psnr_p_after,
@@ -3064,9 +3454,9 @@ def run_parallel(dev, smi: str) -> dict:
         check(r["launches"] == r["expected_launches"],
               f"rank {n}: launches {r['launches']} != renders made "
               f"{r['expected_launches']}")
-        check(r["launches_a"] == launch_counts(2, 2),
+        check(r["launches_a"] == launch_counts(2, 2, poses=2),
               f"rank {n}: (a) launched {r['launches_a']}")
-        check(r["launches_e"] == launch_counts(2, 2, prefix=True),
+        check(r["launches_e"] == launch_counts(2, 2, prefix=True, poses=2),
               f"rank {n}: (e) launched {r['launches_e']}")
         for name, e in r["e"].items():
             check(all(x <= FWD_CHANNEL_TOL * sc for x, sc in
@@ -3131,6 +3521,10 @@ def ptxas_report(reports: dict[str, str]) -> dict:
                     if "ablate" in fn else lib)
             if lib == "gaussian_grad_prefix":
                 name += "." + re.search(r"\d+([a-z_]+_kernel)E", fn).group(1)
+            if lib == "project":      # project_<fwd|bwd|pose>_kernel<...>
+                kern = re.search(r"\d+(project_[a-z]+)_kernel", fn).group(1)
+                targs = re.findall(r"L([ib])(\d+)E", fn)
+                name = kern + "".join(f".{a}" for _, a in targs)
             regs = re.findall(r"Used (\d+) registers", block)
             smem = re.findall(r"(\d+) bytes smem", block)
             spill = re.findall(r"(\d+) bytes spill stores", block)
@@ -3180,6 +3574,16 @@ def main() -> int:
     results: dict = {}
     kernel_checks(dev, "bench_scene", cam.height, cam.width, *bench[1:])
     results["kernels"] = []
+    row = project_checks(dev)
+    results["kernels"] += [
+        {"name": name, "route": "cuda",
+         "source": "freesurgs_tpu_torch/csrc/project.cu",
+         "replaces": PROJECT_REPLACES, "launches": 0,
+         "ms": row[f"{d}_ms"], "bound_ms": row[f"{d}_bound_ms"],
+         "share_of_bound": row[f"{d}_share_of_bound"],
+         "plain_ms": row["plain_fwd_ms" if d == "fwd" else
+                         "plain_fwd_bwd_ms"]}
+        for name, d in (("project_fwd", "fwd"), ("project_bwd", "bwd"))]
     run_ablate(bench, results)
     del bench
     cfg_p, *records_p = records_for(cam, params, grad_sum="prefix")

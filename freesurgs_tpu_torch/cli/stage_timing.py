@@ -8,11 +8,13 @@ Five nested stages, each a chain of ``--iters`` calls in which every call's
 means depend on the call before (``m + 0 * stage(m)``, the stage reduced to
 a scalar), so a stage's cost is its time minus the stage before's:
 
-  1. projection     ``ops/projection.project_gaussians``
+  1. projection     ``ops/project_cuda.raster_inputs``, as ``render`` runs
+                    it: world->camera, EWA, tile rects, opacity and SH
+                    colours (one kernel on the card)
   2. (+)binning     the opacity pre-prune and snug rects, ``derive_bin_rect``
                     and the sort binner ``build_tile_bins`` with its sum
                     layout (``sum_layout``): what ``rasterize`` bins with
-  3. (+)records     SH colours and the per-slot records the kernels read
+  3. (+)records     the per-slot records the kernels read
                     (``raster_cuda._records``: field columns, packed rects,
                     ``_build_feat``)
   4. full fwd       ``render``: the above and K1
@@ -29,10 +31,13 @@ stage. Prints one line per stage and then one JSON line with every
 stage's times, deltas and ``device`` (the card's name and power limit).
 The scene is ``bench.py``'s (``freesurgs_tpu_torch.bench``).
 
-Differences from the JAX script: the port's bins are 32 px with the 16 px
-rect mask, so ``--bin-tile`` takes only 32 (ROADMAP Queue 3); the binner
-is the sort binner (the JAX script times ``binning_fast``, which the port
-leaves out); ``--maxi`` 0 (the default) sizes each layout exactly.
+Differences from the JAX script: stage 1 is the port's whole projection,
+SH colours and opacity included (the JAX script colours in stage 3), since
+``render`` runs it as one kernel on the card; the port's bins are 32 px
+with the 16 px rect mask, so ``--bin-tile`` takes only 32 (ROADMAP Queue
+3); the binner is the sort binner (the JAX script times ``binning_fast``,
+which the port leaves out); ``--maxi`` 0 (the default) sizes each layout
+exactly.
 Events exist only on the card: on the CPU the host clock stands in for
 them. Runs on the card unless ``--device cpu``; without a CUDA device it
 fails.
@@ -47,10 +52,9 @@ import time
 import torch
 
 from ..bench import bench_loss, bench_scene
-from ..core.sh import sh_to_rgb_clamped
 from ..ops import raster_cuda as rc
 from ..ops.binning import build_tile_bins, derive_bin_rect
-from ..ops.projection import project_gaussians
+from ..ops.project_cuda import raster_inputs
 from ..ops.render import raster_config, render
 from ..utils.profiling import (device_label, device_time, resolve_device,
                               synchronize)
@@ -63,32 +67,31 @@ def stage_fns(cam, params, sh_degree: int, max_instances: int = 0):
     (the JAX script's ``s_proj`` ... ``s_bwd``), and the render each of
     stages 4-5 makes per call (forward, backward)."""
     _, quats, log_scales, logit_op, sh = params
-    scales = torch.exp(log_scales)
-    opac = torch.sigmoid(logit_op)
     cfg = raster_config(cam, max_instances)
     eye = torch.eye(4, device=quats.device)
 
     def project(m):
-        return project_gaussians(m, scales, quats, cam)
+        return raster_inputs(m, quats, log_scales, logit_op, sh, eye, cam,
+                             None, None, sh_degree)
 
-    def binned(m):
-        p = rc._prune_and_snug(project(m), opac)
+    def binned_with(m):
+        proj, rgbz, opac = project(m)
+        p = rc._prune_and_snug(proj, opac)
         bins = build_tile_bins(derive_bin_rect(p, cfg.bin_scale),
                                cfg.grid_x, cfg.grid_y, cfg.max_instances)
-        return p, bins
+        return p, bins, rgbz, opac
+
+    def binned(m):
+        return binned_with(m)[:2]
 
     def records(m):
-        p, bins = binned(m)
-        dirs = m * torch.rsqrt(torch.clamp_min((m * m).sum(-1, keepdim=True),
-                                               1e-16))
-        rgbz = torch.cat([sh_to_rgb_clamped(sh_degree, sh, dirs),
-                          p.depth[:, None]], 1)
+        p, bins, rgbz, opac = binned_with(m)
         feat, rect = rc._records(p.mean2d, p.conic, rgbz, opac, p.tile_rect,
                                  bins.gather_idx)
         return feat, rect, bins
 
     def s_proj(m):
-        p = project(m)
+        p = project(m)[0]
         return torch.sum(p.mean2d[:, 0]) + torch.sum(p.depth)
 
     def s_bins(m):
@@ -148,7 +151,8 @@ def time_chain(fn, m, iters: int, dev):
 
 
 def run(args) -> tuple[dict, dict]:
-    """The stages: (the JSON line, diagnostics: renders made)."""
+    """The stages: (the JSON line, diagnostics: renders made, and the
+    projections made outside a render: stages 1-3 project once a call)."""
     if args.bin_tile != rc.BIN:
         raise ValueError(
             f"--bin-tile {args.bin_tile}: the port bins at {rc.BIN} px with "
@@ -168,6 +172,7 @@ def run(args) -> tuple[dict, dict]:
         raise AssertionError(f"instance capacity too small: {overflow} "
                              "dropped")
     renders = {"fwd": 1, "bwd": 0}
+    projections = 0
     rows, prev_host, prev_event = [], 0.0, 0.0
     print(f"config: {H}x{W}, N={args.n}, instances={instances}, "
           f"bin_tile={rc.BIN}, {label}", flush=True)
@@ -178,6 +183,7 @@ def run(args) -> tuple[dict, dict]:
         chains = 3 if dev.type == "cpu" else 4
         renders["fwd"] += chains * args.iters * f
         renders["bwd"] += chains * args.iters * b
+        projections += chains * args.iters * (f == 0)
         ms = event if event is not None else host
         prev = prev_event if event is not None else prev_host
         rows.append({"stage": name, "ms": event, "delta_ms": (
@@ -190,7 +196,7 @@ def run(args) -> tuple[dict, dict]:
     line = {"metric": "stage_ms", "height": H, "width": W, "n": args.n,
             "instances": instances, "bin_tile": rc.BIN, "iters": args.iters,
             "stages": rows, "device": label}
-    return line, {"renders": renders}
+    return line, {"renders": renders, "projections": projections}
 
 
 def parse(argv=None) -> argparse.Namespace:

@@ -73,7 +73,8 @@ NPIX = BIN * BIN
 
 # Kernel launches since the last reset, counted where each kernel launches.
 LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "gaussian_grad_sum": 0,
-            "gaussian_grad_prefix": 0}
+            "gaussian_grad_prefix": 0, "project_fwd": 0, "project_bwd": 0,
+            "project_pose": 0}
 # Binner runs and renders since the last reset: ``_bin_state`` counts the
 # binner's runs (a render that reuses a carried layout does not run it),
 # ``rasterize`` every render.
@@ -529,7 +530,8 @@ KERNEL_SOURCES = {"composite_fwd": "composite_fwd.cu",
                   "composite_bwd": "composite_bwd.cu",
                   "composite_fwd_ablate": "composite_fwd_ablate.cu",
                   "gaussian_grad_sum": "gaussian_grad_sum.cu",
-                  "gaussian_grad_prefix": "gaussian_grad_prefix.cu"}
+                  "gaussian_grad_prefix": "gaussian_grad_prefix.cu",
+                  "project": "project.cu"}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict = {}          # symbol -> bound ctypes function
 
@@ -584,10 +586,11 @@ def build_kernels() -> dict[str, str]:
     return reports
 
 
-def kernel_fn(lib_name: str, symbol: str, n_ptr: int, n_int: int = 3):
+def kernel_fn(lib_name: str, symbol: str, n_ptr: int, n_int: int = 3,
+              n_float: int = 0):
     """The C entry point ``symbol`` of library ``lib_name`` (built first if
     missing): ``n_ptr`` pointers, then ``n_int`` ints (the compositing
-    kernels': M, grid_x, num_tiles) and the stream."""
+    kernels': M, grid_x, num_tiles), ``n_float`` floats and the stream."""
     fn = _FNS.get(symbol)
     if fn is None:
         lib = _LIBS.get(lib_name)
@@ -599,7 +602,7 @@ def kernel_fn(lib_name: str, symbol: str, n_ptr: int, n_int: int = 3):
         fn = getattr(lib, symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         _FNS[symbol] = fn
     return fn
 

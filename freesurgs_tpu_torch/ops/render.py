@@ -10,7 +10,10 @@ the reference:
   and depth^2 each get + T_final;
 - covariances not rotated into the camera frame.
 
-Pose gradients flow through the world->camera transform with autograd;
+The projection (world->camera, EWA, tile rects, opacity, SH) is one
+autograd Function (``ops/project_cuda.py``): one kernel launch forward and
+one backward on the card, the plain ops and their hand-derived backward on
+the CPU. Pose gradients flow through its world->camera transform;
 ``gs_grad`` / ``cam_grad`` detach the Gaussians or the pose. ``probe2d`` is
 a zero tensor added to the projected means whose gradient is the
 screen-space densify statistic.
@@ -23,11 +26,10 @@ from typing import Any
 import torch
 
 from ..core.camera import Camera
-from ..core.sh import sh_to_rgb_clamped
-from ..core.transforms import transform_points
 from ..utils.profiling import span
 from .binning import TileBins
-from .projection import TILE, project_gaussians
+from .project_cuda import raster_inputs
+from .projection import TILE
 from .raster_cuda import RasterConfig, instance_records, rasterize
 
 # Instance-buffer cap used when the caller names none (the JAX package's
@@ -44,21 +46,11 @@ def raster_config(cam: Camera, max_instances: int = 0,
 
 def _raster_inputs(means_w, quats, log_scales, logit_opacity, sh_coeffs,
                    w2c, cam, active, probe2d, sh_degree):
-    """Project the field for ``rasterize``: (proj, rgbz (N, 4), opacity)."""
+    """Project the field for ``rasterize``: (proj, rgbz (N, 4), opacity);
+    one kernel launch each way on a CUDA tensor (ops/project_cuda.py)."""
     with span("project"):
-        mean_cam = transform_points(w2c, means_w)
-        opacity = torch.sigmoid(logit_opacity)
-        proj = project_gaussians(mean_cam, torch.exp(log_scales), quats, cam,
-                                 active=active)
-        if probe2d is not None:
-            proj = proj._replace(mean2d=proj.mean2d + probe2d)
-
-        # SH -> RGB against the origin; rsqrt(max(|x|^2, eps^2)) keeps the
-        # gradient of exactly-zero (unused) means at 0 instead of 0 * inf.
-        n2 = torch.sum(means_w * means_w, dim=-1, keepdim=True)
-        dirs = means_w * torch.rsqrt(torch.clamp_min(n2, 1e-16))
-        rgb = sh_to_rgb_clamped(sh_degree, sh_coeffs, dirs)
-        return proj, torch.cat([rgb, proj.depth[:, None]], dim=1), opacity
+        return raster_inputs(means_w, quats, log_scales, logit_opacity,
+                             sh_coeffs, w2c, cam, active, probe2d, sh_degree)
 
 
 def render_records(means3d, quats, log_scales, logit_opacity, sh_coeffs,

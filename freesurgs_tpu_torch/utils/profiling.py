@@ -47,7 +47,8 @@ import torch
 #   map.iter    one iteration; its ``request`` is the global iteration it
 #               maps (the counter after the step), shared by its children
 #   project     ops/render.py _raster_inputs: world->camera, projection,
-#               SH->RGB
+#               SH->RGB (ops/project_cuda.py: one kernel launch; its
+#               backward kernel runs under ``backward``)
 #   raster      ops/render.py render after the projection: the binning
 #               (``bin``, inside it), the records, K1, the background
 #   bin         ops/raster_cuda.py rasterize: pruning, snug rects and the
