@@ -14,7 +14,11 @@ every checked episode, of
   half_rows  the reference in the program's place with half of the batch
              left out: the photometric loss over the top half of the rows;
   unchanged  a step that returns its state unchanged (its change reads 1
-             by the measure, so it needs no run; given for completeness).
+             by the measure, so it needs no run; given for completeness);
+
+and each further fault that the cell's stage module plants in the
+reference put in the program's place (its ``FAULTS``: the name of each and
+the keyword arguments of its ``check``; ``half_rows`` where it names none).
 
 Each seed's line is printed as JSON and appended to ``--out``. Needs the
 card unless a test passes ``device``.
@@ -37,9 +41,9 @@ from perfbench import run as harness
 def readings(cell: str, seeds, *, faults: int | None = None,
              device: str = "cuda", root: Path = harness.ROOT,
              here: Path = harness.HERE, log=None):
-    """Yield {seed, program, unchanged, control, half_rows} per seed;
-    control and half_rows on the first ``faults`` seeds only (all when
-    None)."""
+    """Yield {seed, program, unchanged, control, <each fault>} per seed;
+    the control and the faults on the first ``faults`` seeds only (all
+    when None)."""
     faults = len(seeds) if faults is None else faults
     _, _, spec, traffic, _ = harness.load_cell(cell, root, here)
     stage = harness.load_stage(traffic, here)
@@ -53,15 +57,16 @@ def readings(cell: str, seeds, *, faults: int | None = None,
         ref = stage.check(inputs)
         prog = inputs["program"]
         unchanged = {p: dict(r, change={k: 0.0 for k in r["change"]})
-                     for p, r in prog.items()}
+                     if "change" in r else r for p, r in prog.items()}
         out = {"seed": seed, "program": check.numbers(prog, ref),
                "unchanged": check.numbers(unchanged, ref)}
         if faults:
             faults -= 1
             out["control"] = check.numbers(stage.check(inputs, mode="tf32"),
                                            ref)
-            out["half_rows"] = check.numbers(
-                stage.check(inputs, drop_half_rows=True), ref)
+            for name, kw in getattr(stage, "FAULTS", {
+                    "half_rows": {"drop_half_rows": True}}).items():
+                out[name] = check.numbers(stage.check(inputs, **kw), ref)
         yield out
 
 

@@ -153,6 +153,8 @@ def main(argv=None, *, device: str = "cuda", root: Path = ROOT,
     log(f"[perfbench] reference check: {time.time() - t_ref:.2f} s")
     nums = check_mod.numbers(inputs["program"], ref)
     for p, r in ref.items():
+        if "grad1" not in r:
+            continue
         log(f"[perfbench] reference first-gradient norms by leaf "
             f"({p or 'window'}): "
             + " ".join(f"{k}={v:.4g}" for k, v in r["grad1"].items()))

@@ -39,7 +39,8 @@ def test_no_jax_import(path):
 
 
 def test_reference_loads_nothing_of_the_program():
-    code = ("import sys, perfbench.reference.mapping, perfbench.scene, "
+    code = ("import sys, perfbench.reference.mapping, "
+            "perfbench.reference.tracking, perfbench.scene, "
             "perfbench.check, perfbench.work.counts; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0].startswith('freesurgs')))")
@@ -86,6 +87,9 @@ def test_harness_takes_new_files_by_name(tmp_path, capsys):
                                "better": "higher", "source": "device_trace",
                                "layer": "device", "moves": "global_it_per_s",
                                "workloads": ["dummy.cell"]})
+    for m in bench["end_to_end"]:
+        if m["name"] == "global_it_per_s":
+            m["workloads"].append("dummy.cell")
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     (here / "traffic" / "dummy.json").write_text(
         json.dumps({"stage": "dummy_stage", "iterations": 7}))
