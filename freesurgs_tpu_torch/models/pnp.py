@@ -23,6 +23,12 @@ It fails (``ok`` False) when the best hypothesis has fewer than 6 inliers
 or the refined pose is not finite. Everything runs in float64; the only
 host reads are the best inlier count and the finiteness test.
 
+``PNP`` counts, since the last ``reset_pnp``, what the host already holds
+after a solve: ``pnp_pose_init`` calls, their fallbacks to the previous
+pose and the matches they drew; the hypotheses scored and the sum of the
+winners' inlier counts (the count the solve reads anyway). Counting adds
+no launch and no host read.
+
 Differences from cv2 (whose minimal solver is EPnP on 5 points, with an
 adaptive iteration count up to 100 at confidence 0.99 and a
 Levenberg-Marquardt refine): a DLT needs 6 points and fails on a planar
@@ -40,6 +46,14 @@ import torch
 from ..train.flow_pnp import so3_exp
 
 MIN_SET = 6
+
+PNP = {"calls": 0, "fallbacks": 0, "matches": 0, "hypotheses": 0,
+       "inliers": 0}
+
+
+def reset_pnp() -> None:
+    for k in PNP:
+        PNP[k] = 0
 
 
 class PnPResult(NamedTuple):
@@ -168,7 +182,10 @@ def solve_pnp_ransac(obj: torch.Tensor, img: torch.Tensor, K: torch.Tensor,
         inl = (err2 <= reproj_px * reproj_px) & (z > 0)
         counts = inl.sum(dim=1)
         best = torch.argmax(counts)
-        if int(counts[best]) < MIN_SET:
+        n_best = int(counts[best])
+        PNP["hypotheses"] += iterations
+        PNP["inliers"] += n_best
+        if n_best < MIN_SET:
             return PnPResult(False, eye, torch.zeros(3, dtype=X.dtype,
                                                      device=X.device),
                              inl[best])

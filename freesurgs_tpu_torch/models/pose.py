@@ -20,7 +20,7 @@ from ..core.camera import Camera, pixel_grid
 from ..core.transforms import (build_w2c, essential_from_poses,
                                fundamental_from_essential, quat_normalize,
                                rotmat_to_quat)
-from .pnp import solve_pnp_ransac
+from .pnp import PNP, solve_pnp_ransac
 
 
 @dataclasses.dataclass
@@ -136,7 +136,8 @@ def pnp_pose_init(poses: PoseTable, t: int, flow_fw_prev: torch.Tensor,
     ``max_points`` of them, drawn with numpy ``default_rng(seed)`` as the
     JAX function draws them. The relative pose composes onto ``prev_w2c``.
     Fewer than 6 usable matches, or a failed solve, copy the previous
-    pose."""
+    pose. Counted in ``pnp.PNP``."""
+    PNP["calls"] += 1
     p1, p2, valid = flow_matches(flow_fw_prev, cam)
     depth = prev_depth.reshape(-1)
     valid = valid & (depth > 0)
@@ -144,7 +145,9 @@ def pnp_pose_init(poses: PoseTable, t: int, flow_fw_prev: torch.Tensor,
     rng = np.random.default_rng(seed)
     if len(idx) > max_points:
         idx = rng.choice(idx, max_points, replace=False)
+    PNP["matches"] += len(idx)
     if len(idx) < 6:
+        PNP["fallbacks"] += 1
         return copy_previous_init(poses, t)
 
     dev = flow_fw_prev.device
@@ -159,6 +162,7 @@ def pnp_pose_init(poses: PoseTable, t: int, flow_fw_prev: torch.Tensor,
                         device=dev)
     res = solve_pnp_ransac(obj, img, K, reproj_px=3.0, seed=seed)
     if not res.ok:
+        PNP["fallbacks"] += 1
         return copy_previous_init(poses, t)
 
     # rel maps cam(t-1) coordinates to cam(t): w2c_t = rel @ w2c_{t-1}

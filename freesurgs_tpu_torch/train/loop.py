@@ -285,43 +285,53 @@ class Trainer:
         v.wait_if_paused()
 
     def track_frame(self, t: int):
-        if t > 1 and self.pose_init == "pnp":
-            self.poses = posemod.pnp_pose_init(
-                self.poses, t, self.flows_fw[t - 1],
-                self.state.pred_depths[t - 1].to(torch.float32),
-                self.poses.w2c(t - 1).detach(), self.cam, seed=self.seed + t)
-        elif t > 1:
-            self.poses = posemod.const_velocity_init(self.poses, t)
-        elif t == 1:
-            self.poses = posemod.copy_previous_init(self.poses, t)
-        rigid = self._rigid_mask(t)
-        with torch.no_grad():
-            prev_w2c = self.poses.w2c(t - 1)
-        q, tr, metrics = tracking_loop(
-            self.field, self.poses.quats[t], self.poses.trans[t],
-            self.colors[t], self.state.pred_depths[t - 1], prev_w2c,
-            self.flows_fw[t - 1], rigid, self.cam, self.cfg,
-            sh_degree=self.active_sh_degree, mesh=self.mesh)
-        self.poses = self.poses.set_frame(t, q, tr)
+        with span("track"):
+            with span("track.init"):
+                if t > 1 and self.pose_init == "pnp":
+                    self.poses = posemod.pnp_pose_init(
+                        self.poses, t, self.flows_fw[t - 1],
+                        self.state.pred_depths[t - 1].to(torch.float32),
+                        self.poses.w2c(t - 1).detach(), self.cam,
+                        seed=self.seed + t)
+                elif t > 1:
+                    self.poses = posemod.const_velocity_init(self.poses, t)
+                elif t == 1:
+                    self.poses = posemod.copy_previous_init(self.poses, t)
+            with span("track.mask"):
+                rigid = self._rigid_mask(t)
+            with torch.no_grad():
+                prev_w2c = self.poses.w2c(t - 1)
+            q, tr, metrics = tracking_loop(
+                self.field, self.poses.quats[t], self.poses.trans[t],
+                self.colors[t], self.state.pred_depths[t - 1], prev_w2c,
+                self.flows_fw[t - 1], rigid, self.cam, self.cfg,
+                sh_degree=self.active_sh_degree, mesh=self.mesh)
+            self.poses = self.poses.set_frame(t, q, tr)
         return metrics
 
-    def progressive_run(self):
+    def progressive_frame(self, t: int, t0: float | None = None):
+        """Frame ``t`` of the progressive stage: tracked (t > 0), rendered
+        into the caches (an unmapped test frame) or mapped (a train frame),
+        its history row appended. ``t0``: the stage's start, for the log
+        line (default: the frame's)."""
         i_train = set(int(i) for i in np.asarray(self.seq.i_train))
-        timer = StepTimer(self.cam.height, self.cam.width)
-        t0 = time.time()
-        for t in range(self.num_frames):
-            t_frame = time.time()
+        t_frame = time.time()
+        if t0 is None:
+            t0 = t_frame
+        if self.viewer is not None:
+            timer = StepTimer(self.cam.height, self.cam.width)
             timer.start()
-            self.cur_frame = t
-            metrics: dict = {}
-            overflow = []       # instances dropped at the cap, every render
-            if t > 0:
-                metrics = self.track_frame(t)
-                if "overflow" in metrics:
-                    overflow.append(metrics["overflow"])
-            if t not in i_train and self.cache_test_frames:
-                # an unmapped (test) frame: render it into the caches so
-                # the next frame's flow loss and GN solve have a depth
+        self.cur_frame = t
+        metrics: dict = {}
+        overflow = []       # instances dropped at the cap, every render
+        if t > 0:
+            metrics = self.track_frame(t)
+            if "overflow" in metrics:
+                overflow.append(metrics["overflow"])
+        if t not in i_train and self.cache_test_frames:
+            # an unmapped (test) frame: render it into the caches so the
+            # next frame's flow loss and GN solve have a depth
+            with span("cache_render"):
                 out = self.render_frame(t)
                 overflow.append(out["overflow"])
                 with torch.no_grad():
@@ -329,45 +339,50 @@ class Trainer:
                         torch.bfloat16)
                     self.state.pred_colors[t] = torch.clamp(
                         out["render"], 0.0, 1.0).to(torch.bfloat16)
-            if t in i_train:
-                self._update_sh_degree()
-                n_it = (self.cfg.first_frame_mapping_iters if t == 0
-                        else self.cfg.mapping_iters)
-                aux = self._map_frame(t, n_it, two_views=(t > 0))
-                self.keyframes.append(t)
-                metrics.update({k: aux[k] for k in ("loss", "num_active")})
-                terms = aux["loss_terms"]
-                if terms is not None:
-                    metrics["rgb"], metrics["pear"], metrics["lp"] = \
-                        terms[0], terms[1], terms[2]
-                metrics["inst"] = aux["num_instances_max"]
-                overflow.append(aux["overflow_max"])
-                metrics["densify_events"] = aux["densify_events"]
-                metrics["opacity_resets"] = aux["opacity_resets"]
-                self._maybe_grow()
-                self._report_nonfinite(aux, f"frame {t}")
-                if self.panel_fn is not None and t % self.panel_every == 0:
-                    self._emit_panel(t)
-            if overflow:
-                metrics["overflow"] = torch.stack(
-                    [o.to(torch.float32) for o in overflow]).max()
-                self._warn_overflow(float(metrics["overflow"]), f"frame {t}")
-            if self.colors.is_cuda:
-                torch.cuda.synchronize(self.colors.device)
-            metrics["seconds"] = time.time() - t_frame
-            row = {"stage": "progressive", "frame": t, **metrics}
-            if t in i_train and aux["keyframe_views"] is not None:
-                row["keyframe_views"] = aux["keyframe_views"].tolist()
-            self.history.append(row)
-            if self.viewer is not None:
-                timer.stop(sync_on=self.state.field.num_active)
-                self._viewer_tick(timer.rays_per_sec)
-            if t % 10 == 0:
-                self.log_fn(f"[progressive {t}/{self.num_frames}] "
-                            + " ".join(f"{k}={float(v):.4g}"
-                                       for k, v in metrics.items())
-                            + f" ({time.time() - t0:.1f}s)")
-                self._flush_history()
+        if t in i_train:
+            self._update_sh_degree()
+            n_it = (self.cfg.first_frame_mapping_iters if t == 0
+                    else self.cfg.mapping_iters)
+            aux = self._map_frame(t, n_it, two_views=(t > 0))
+            self.keyframes.append(t)
+            metrics.update({k: aux[k] for k in ("loss", "num_active")})
+            terms = aux["loss_terms"]
+            if terms is not None:
+                metrics["rgb"], metrics["pear"], metrics["lp"] = \
+                    terms[0], terms[1], terms[2]
+            metrics["inst"] = aux["num_instances_max"]
+            overflow.append(aux["overflow_max"])
+            metrics["densify_events"] = aux["densify_events"]
+            metrics["opacity_resets"] = aux["opacity_resets"]
+            self._maybe_grow()
+            self._report_nonfinite(aux, f"frame {t}")
+            if self.panel_fn is not None and t % self.panel_every == 0:
+                self._emit_panel(t)
+        if overflow:
+            metrics["overflow"] = torch.stack(
+                [o.to(torch.float32) for o in overflow]).max()
+            self._warn_overflow(float(metrics["overflow"]), f"frame {t}")
+        if self.colors.is_cuda:
+            torch.cuda.synchronize(self.colors.device)
+        metrics["seconds"] = time.time() - t_frame
+        row = {"stage": "progressive", "frame": t, **metrics}
+        if t in i_train and aux["keyframe_views"] is not None:
+            row["keyframe_views"] = aux["keyframe_views"].tolist()
+        self.history.append(row)
+        if self.viewer is not None:
+            timer.stop(sync_on=self.state.field.num_active)
+            self._viewer_tick(timer.rays_per_sec)
+        if t % 10 == 0:
+            self.log_fn(f"[progressive {t}/{self.num_frames}] "
+                        + " ".join(f"{k}={float(v):.4g}"
+                                   for k, v in metrics.items())
+                        + f" ({time.time() - t0:.1f}s)")
+            self._flush_history()
+
+    def progressive_run(self):
+        t0 = time.time()
+        for t in range(self.num_frames):
+            self.progressive_frame(t, t0)
         self._flush_history()
 
     def global_run(self, iters: int | None = None):

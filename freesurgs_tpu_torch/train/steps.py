@@ -155,10 +155,11 @@ def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
     check_supported(cfg)
     gn_diag = None
     if cfg.tracking_gn_iters > 0:
-        quat0, trans0, gn_diag = flow_pnp_refine(
-            quat0, trans0, prev_depth, prev_w2c, flow_fw_prev, cam,
-            rigid_mask=rigid_mask, iters=cfg.tracking_gn_iters,
-            huber_px=cfg.tracking_gn_huber_px)
+        with span("track.gn"):
+            quat0, trans0, gn_diag = flow_pnp_refine(
+                quat0, trans0, prev_depth, prev_w2c, flow_fw_prev, cam,
+                rigid_mask=rigid_mask, iters=cfg.tracking_gn_iters,
+                huber_px=cfg.tracking_gn_huber_px)
     pose = {"q": quat0.detach().clone(), "t": trans0.detach().clone()}
     opt = adam_init(pose)
     dev = quat0.device
@@ -170,33 +171,36 @@ def tracking_loop(field: GaussianField, quat0, trans0, gt_image, prev_depth,
     carry = cfg.rebin_tracking_every > 1 and mesh is None
     bins = None
     for i in range(cfg.tracking_iters):
-        q = pose["q"].requires_grad_(True)
-        t = pose["t"].requires_grad_(True)
-        w2c = build_w2c(q, t)
-        out = _render(mesh, field.means, field.quats, field.log_scales,
-                      field.logit_opacity, sh, w2c, cam, active=field.active,
-                      sh_degree=sh_degree, max_instances=cfg.instance_cap,
-                      gs_grad=False, cam_grad=True, bins=bins,
-                      rebin=(i % cfg.rebin_tracking_every == 0) if carry
-                      else None, grad_sum=cfg.grad_sum)
-        bins = out.get("bins")
-        overflow_max = torch.maximum(overflow_max,
-                                     out["overflow"].to(torch.float32))
-        mask = (out["render_dep"] > 0) & (rigid_mask > 0)
-        rgb = cfg.w_rgb_tracking * losses.rgb_loss(out["render"], gt_image,
-                                                   mask=mask)
-        flow = cfg.w_flow_tracking * losses.flow_projection_loss(
-            prev_depth, prev_w2c, out["render_w2c"], flow_fw_prev, cam,
-            rigid_mask=rigid_mask)
-        loss = rgb + flow
-        gq, gt = torch.autograd.grad(loss, (q, t))
-        # NaN guard: one non-finite gradient must not poison the pose
-        nonfinite = nonfinite + _isfinite_count(gq) + _isfinite_count(gt)
-        grads = {"q": _finite(gq), "t": _finite(gt)}
-        lr = tracking_lr(i, cfg.tracking_iters, device=dev)
-        upd, opt = adam_update(grads, opt, lr)
-        pose = apply_updates({"q": q.detach(), "t": t.detach()}, upd)
-        last = (loss.detach(), rgb.detach(), flow.detach())
+        with span("track.iter"):
+            q = pose["q"].requires_grad_(True)
+            t = pose["t"].requires_grad_(True)
+            w2c = build_w2c(q, t)
+            out = _render(mesh, field.means, field.quats, field.log_scales,
+                          field.logit_opacity, sh, w2c, cam,
+                          active=field.active, sh_degree=sh_degree,
+                          max_instances=cfg.instance_cap, gs_grad=False,
+                          cam_grad=True, bins=bins,
+                          rebin=(i % cfg.rebin_tracking_every == 0) if carry
+                          else None, grad_sum=cfg.grad_sum)
+            bins = out.get("bins")
+            overflow_max = torch.maximum(overflow_max,
+                                         out["overflow"].to(torch.float32))
+            mask = (out["render_dep"] > 0) & (rigid_mask > 0)
+            rgb = cfg.w_rgb_tracking * losses.rgb_loss(
+                out["render"], gt_image, mask=mask)
+            flow = cfg.w_flow_tracking * losses.flow_projection_loss(
+                prev_depth, prev_w2c, out["render_w2c"], flow_fw_prev, cam,
+                rigid_mask=rigid_mask)
+            loss = rgb + flow
+            gq, gt = torch.autograd.grad(loss, (q, t))
+            # NaN guard: one non-finite gradient must not poison the pose
+            nonfinite = nonfinite + _isfinite_count(gq) + \
+                _isfinite_count(gt)
+            grads = {"q": _finite(gq), "t": _finite(gt)}
+            lr = tracking_lr(i, cfg.tracking_iters, device=dev)
+            upd, opt = adam_update(grads, opt, lr)
+            pose = apply_updates({"q": q.detach(), "t": t.detach()}, upd)
+            last = (loss.detach(), rgb.detach(), flow.detach())
     metrics = {"loss": last[0], "rgb_loss": last[1], "flow_loss": last[2],
                "nonfinite_grads": nonfinite, "overflow": overflow_max}
     if gn_diag is not None:

@@ -60,6 +60,20 @@ import torch
 #   update      the rest: NaN guard, densify statistics, Adam, densify and
 #               reset checks, prediction caches, the chunk's maxima
 #
+# and of one progressive frame (``train/loop.py progressive_frame``):
+#
+#   track        Trainer.track_frame, the whole call; under it:
+#   track.init   the pose's init: RANSAC PnP (models/pose.py pnp_pose_init,
+#                with its host reads) or constant velocity
+#   track.mask   Trainer._rigid_mask, the epipolar rigidity mask
+#   track.gn     train/steps.py tracking_loop's Gauss-Newton flow-PnP solve
+#   track.iter   one Adam step of tracking_loop; the render's ``project``,
+#                ``raster`` and ``bin`` open under it
+#   cache_render a test frame's render into the depth and colour caches
+#
+# A train frame's two-view mapping opens ``map.iter`` and its layers as
+# above.
+#
 # Off (the default), ``span`` costs one flag test and returns a shared
 # no-op context: no clock read, no allocation. On, a span reads
 # ``time.time_ns()`` twice, the clock torch.profiler's events carry, so the
